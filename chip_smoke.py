@@ -1,0 +1,486 @@
+#!/usr/bin/env python3
+"""Drives the PyTorch/CUDA port (``kaolin_tpu_torch``) on one NVIDIA GPU.
+
+Run from the root of the repository, on a machine with a CUDA card and
+``nvcc``::
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from ``kaolin_tpu_torch/csrc/``, holds
+each kernel against its plain PyTorch version on the card at the shapes of
+the DIB-R forward render, drives that render (``prepare_vertices`` ->
+``dibr_rasterization`` -> ``mask_iou``) at two sizes and checks that every
+kernel ran in it, checks the render against the plain version on the CPU
+on a small input, and times it all with CUDA events.
+
+Sizes: ``bench.py``'s (batch 4, icosphere subdivision 3 = 1,280 faces,
+512x512) and the face count of ``bench_suite.py``'s config 2 (batch 8,
+subdivision 5 = 20,480 faces, 512x512). Each size is rendered with 4
+features per vertex (camera-space xyz and 1) and with 40 (the same plus 36
+seeded random channels), which takes the wide-feature route.
+
+Output: the card line from ``nvidia-smi``, one line per check, a JSON line
+``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``. Any
+failed check raises and the script exits non-zero without the last line.
+It exits non-zero at once when no CUDA card is visible.
+"""
+
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile, schedule
+
+import kaolin_tpu_torch as kt
+from kaolin_tpu_torch.kernels import _build
+from kaolin_tpu_torch.kernels import rasterize as kr
+from kaolin_tpu_torch.kernels import soft_mask as ks
+from kaolin_tpu_torch.kernels.rasterize import _pixel_coords
+from kaolin_tpu_torch.render.mesh.dibr import _scaled_inputs
+from kaolin_tpu_torch.render.mesh.rasterization import _kernel_inputs
+
+SEED = 0
+H = W = 512
+SIZES = (('bench', 4, 3), ('config2', 8, 5))   # (name, batch, subdiv)
+WIDE = 40                                      # features of the wide route
+KNUM = 30                                      # dibr_soft_mask default
+TIME_ITERS = 20
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
+# the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+# float operations per (pixel, face) pair, counted from the formulas:
+# rasterize - 6 subtractions to the pixel, 3 edge functions (2 mul, 1 sub
+# each), the normalisation (3 add), 3 divisions, the z interpolation
+# (3 mul, 2 add); soft mask - per edge 38 (line coefficients, the foot of
+# the perpendicular, its inside test, the distance), per vertex 5, the
+# 5-way min, z, exp, 1-p and the product
+OPS_RASTER_PAIR = 26
+OPS_SOFT_PAIR = 3 * 38 + 3 * 5 + 5 + 3 + 1 + 2
+
+# stated tolerances, kernel vs plain version on the card (float32): the
+# kernels repeat the plain version's operations in its order without fused
+# multiply-adds, so face indices must agree exactly; floats may differ only
+# where expf and PyTorch's exp do (the soft mask)
+TOL_WEIGHTS = 1e-6
+TOL_FEATURES = 1e-5
+TOL_MASK = 1e-6
+# the card's render vs the plain version on the CPU from the same prepared
+# vertices: the same arithmetic, so indices agree exactly
+TOL_CPU = 1e-5
+
+KERNELS = {
+    'rasterize_interp': ('kaolin_tpu_torch/csrc/rasterize.cu',
+                         'kaolin_tpu/kernels/rasterize.py:432'),
+    'rasterize_select': ('kaolin_tpu_torch/csrc/rasterize.cu',
+                         'kaolin_tpu/kernels/rasterize.py:527'),
+    'soft_mask_forward': ('kaolin_tpu_torch/csrc/soft_mask.cu',
+                          'kaolin_tpu/kernels/soft_mask.py:418'),
+}
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def card_line():
+    out = subprocess.run(
+        ['nvidia-smi', '-i', '0', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters):
+    """Mean ms of ``fn()`` on the card over ``iters`` calls, after one
+    warm-up call, with CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_err(a, b, mask=None):
+    d = (a.double() - b.double()).abs()
+    if mask is not None:
+        d = d[mask]
+    return float(d.max()) if d.numel() else 0.0
+
+
+def expect(cond, what):
+    if not cond:
+        raise AssertionError(what)
+
+
+def disc_radius():
+    """Silhouette radius of the unit sphere in image units: each camera
+    sits sqrt(3^2 + 0.5^2) from its centre with a 45-degree fovy."""
+    d = math.sqrt(3. ** 2 + 0.5 ** 2)
+    return math.tan(math.asin(1. / d)) / math.tan(math.pi / 8.)
+
+
+def disc(device):
+    """(1, H, W) mask of the sphere's analytic silhouette."""
+    x = (2. * torch.arange(W, device=device) + 1. - W) / W
+    y = (H - 2. * torch.arange(H, device=device) - 1.) / H
+    return ((x[None, :] ** 2 + y[:, None] ** 2)
+            < disc_radius() ** 2).float()[None]
+
+
+class Scene:
+    """One size: the scene, its prepared vertices and the kernels' inputs."""
+
+    def __init__(self, name, batch, subdiv, device):
+        self.name, self.batch = name, batch
+        verts, faces, rot, trans, proj = kt.utils.interop.scene(
+            batch, subdiv, device=device)
+        self.args = (verts, faces, rot, trans, proj)
+        self.faces = faces
+        self.num_faces = faces.shape[0]
+        rng = np.random.default_rng(SEED)
+        extra = rng.standard_normal((verts.shape[1], WIDE - 4))
+        self.extra = torch.tensor(extra, dtype=torch.float32,
+                                  device=device)[None].repeat(batch, 1, 1)
+        self.target = disc(device).expand(batch, H, W)
+        fvc, fvi, fn = kt.render.mesh.prepare_vertices(
+            verts, faces, proj, camera_rot=rot, camera_trans=trans)
+        self.fz, self.img, self.bbox = _kernel_inputs(
+            fvc[..., 2], fvi, fn[..., 2] >= 0., 1000.)
+        self.feat4 = self.features(fvc, 4).reshape(batch, -1, 12)
+        self.sm_img, self.sm_bbox = _scaled_inputs(fvi, 0.02, 1000.)
+
+    def features(self, fvc, dim):
+        ones = torch.ones(fvc.shape[:3] + (1,), device=fvc.device)
+        parts = [fvc, ones]
+        if dim > 4:
+            parts.append(kt.ops.mesh.index_vertices_by_faces(self.extra,
+                                                             self.faces))
+        return torch.cat(parts, dim=-1)
+
+    def forward(self, dim):
+        """The user's forward render: prepare_vertices ->
+        dibr_rasterization -> mask_iou."""
+        verts, faces, rot, trans, proj = self.args
+        fvc, fvi, fn = kt.render.mesh.prepare_vertices(
+            verts, faces, proj, camera_rot=rot, camera_trans=trans)
+        feat, soft_mask, face_idx = kt.render.mesh.dibr_rasterization(
+            H, W, fvc[..., 2], fvi, self.features(fvc, dim), fn[..., 2])
+        loss = kt.metrics.render.mask_iou(soft_mask, self.target)
+        return feat, soft_mask, face_idx, loss
+
+
+def pixel_hits(bbox, height, width):
+    """Per pixel, the number of faces whose bbox [xmin, xmax) x [ymin, ymax)
+    holds its centre, from each face's column and row ranges (a 2-D
+    difference array). (B, H, W) int64."""
+    B = bbox.shape[0]
+    x0, y0 = _pixel_coords(height, width, 1000., bbox.dtype,
+                           device=bbox.device)
+    y_up = y0.flip(0).contiguous()
+    c_lo = torch.searchsorted(x0, bbox[..., 0].contiguous())
+    c_hi = torch.searchsorted(x0, bbox[..., 2].contiguous())
+    r_lo = height - torch.searchsorted(y_up, bbox[..., 3].contiguous())
+    r_hi = height - torch.searchsorted(y_up, bbox[..., 1].contiguous())
+    ok = (c_hi > c_lo) & (r_hi > r_lo)
+    diff = torch.zeros((B, height + 1, width + 1), dtype=torch.int64,
+                       device=bbox.device)
+    b = torch.arange(B, device=bbox.device)[:, None].expand_as(c_lo)[ok]
+    ones = torch.ones_like(b)
+    for r, c, sign in ((r_lo, c_lo, 1), (r_lo, c_hi, -1), (r_hi, c_lo, -1),
+                       (r_hi, c_hi, 1)):
+        diff.index_put_((b, r[ok], c[ok]), sign * ones, accumulate=True)
+    return diff.cumsum(1).cumsum(2)[:, :height, :width]
+
+
+def raster_bound(sc, dim, interp):
+    """(bound ms, 'bytes' or 'operations') of one rasterize call."""
+    B, F = sc.batch, sc.num_faces
+    # 4-byte values: z, verts and bbox (13) plus features (3D) per face in;
+    # idx, weights, features (4 + D) or zbuf and idx (2) per pixel out
+    per_face = 13 + (3 * dim if interp else 0)
+    per_pixel = 4 + dim if interp else 2
+    nbytes = 4 * (B * F * per_face + B * H * W * per_pixel)
+    pairs = int(pixel_hits(sc.bbox, H, W).sum())
+    ops = pairs * OPS_RASTER_PAIR
+    return bound(nbytes, ops)
+
+
+def soft_bound(sc, face_idx, knum):
+    B, F = sc.batch, sc.num_faces
+    # verts and enlarged bbox (10) per face in; idx in and mask out per pixel
+    nbytes = 4 * (B * F * 10 + B * H * W * 2)
+    hits = pixel_hits(sc.sm_bbox, H, W).clamp(max=knum)
+    pairs = int(hits[face_idx < 0].sum())
+    return bound(nbytes, pairs * OPS_SOFT_PAIR)
+
+
+def bound(nbytes, ops):
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32
+    return (max(t_bytes, t_ops) * 1e3,
+            'bytes' if t_bytes >= t_ops else 'operations')
+
+
+def kernel_phases(sc):
+    """Each kernel against its plain version on the card, at this size's
+    shapes, then both timed. Returns ({kernel: max abs error},
+    {kernel: times})."""
+    errs = {}
+
+    def record(name, err):
+        errs[name] = max(errs.get(name, 0.), err)
+
+    kw = dict(height=H, width=W, multiplier=1000., eps=1e-8)
+
+    # interp, D = 4, with normal-z culling
+    args = (sc.fz, sc.img, sc.bbox, sc.feat4)
+    feat_k, idx_k, w_k = kr.rasterize_interp(*args, **kw)
+    feat_p, idx_p, w_p = kr.rasterize_interp_plain(*args, **kw)
+    torch.cuda.synchronize()
+    mism = int((idx_k != idx_p).sum())
+    ew, ef = max_err(w_k, w_p), max_err(feat_k, feat_p)
+    log(f'[{sc.name}] rasterize_interp D=4: face_idx mismatches {mism}, '
+        f'covered {float((idx_k >= 0).float().mean()):.4f}, '
+        f'max err weights {ew:.3e} features {ef:.3e}')
+    expect(mism == 0 and ew <= TOL_WEIGHTS and ef <= TOL_FEATURES,
+           'rasterize_interp disagrees with its plain version')
+    record('rasterize_interp', max(ew, ef))
+    idx_main = idx_k
+
+    # select, D = 40
+    z_k, sidx_k = kr.rasterize_select(sc.fz, sc.img, sc.bbox, **kw)
+    z_p, sidx_p = kr.rasterize_select_plain(sc.fz, sc.img, sc.bbox, **kw)
+    torch.cuda.synchronize()
+    mism = int((sidx_k != sidx_p).sum())
+    cov = sidx_k >= 0
+    ez = max_err(z_k, z_p, cov)
+    expect(bool(torch.isneginf(z_k[~cov]).all()), 'select: uncovered zbuf')
+    log(f'[{sc.name}] rasterize_select: face_idx mismatches {mism} '
+        f'(vs interp {int((sidx_k != idx_k).sum())}), max err zbuf {ez:.3e}')
+    expect(mism == 0 and ez <= TOL_WEIGHTS and bool((sidx_k == idx_k).all()),
+           'rasterize_select disagrees with its plain version')
+    record('rasterize_select', ez)
+
+    # soft mask: the default knum, one that never binds, one that binds
+    hits = pixel_hits(sc.sm_bbox, H, W)[idx_main < 0]
+    log(f'[{sc.name}] soft mask: most enlarged-bbox hits on an uncovered '
+        f'pixel {int(hits.max())}')
+    for knum in (KNUM, sc.num_faces, 2):
+        skw = dict(height=H, width=W, knum=knum, sigmainv=7000.,
+                   multiplier=1000.)
+        m_k = ks.soft_mask_forward(sc.sm_img, sc.sm_bbox, idx_main, **skw)
+        m_p = ks.soft_mask_forward_plain(sc.sm_img, sc.sm_bbox, idx_main,
+                                         **skw)
+        torch.cuda.synchronize()
+        em = max_err(m_k, m_p)
+        binds = int((hits > knum).sum())
+        log(f'[{sc.name}] soft_mask_forward knum={knum}: pixels where knum '
+            f'binds {binds}, max err {em:.3e}')
+        expect(em <= TOL_MASK, 'soft_mask_forward disagrees with its plain '
+               f'version at knum={knum}')
+        record('soft_mask_forward', em)
+
+    # slab with culling: rows 128..319 of the 512-row image
+    r0, hs = H // 4, 3 * H // 8
+    f_k, i_k, w_k = kr.rasterize_interp(
+        *args, row_start=r0, height=hs, width=W, total_height=H,
+        multiplier=1000., eps=1e-8)
+    f_p, i_p, w_p = kr.rasterize_interp_plain(
+        *args, row_start=r0, height=hs, width=W, total_height=H,
+        multiplier=1000., eps=1e-8)
+    torch.cuda.synchronize()
+    mism = int((i_k != i_p).sum())
+    slab_vs_full = int((i_k != idx_main[:, r0:r0 + hs]).sum())
+    ef = max(max_err(f_k, f_p), max_err(w_k, w_p))
+    log(f'[{sc.name}] rasterize_interp slab rows {r0}..{r0 + hs - 1}: '
+        f'face_idx mismatches {mism}, vs full image {slab_vs_full}, '
+        f'max err {ef:.3e}')
+    expect(mism == 0 and slab_vs_full == 0 and ef <= TOL_FEATURES,
+           'rasterize_interp slab disagrees')
+    record('rasterize_interp', ef)
+
+    times = {}
+    sel = (sc.fz, sc.img, sc.bbox)
+    skw = dict(height=H, width=W, knum=KNUM, sigmainv=7000.,
+               multiplier=1000.)
+    plain_iters = 3 if sc.num_faces < 4096 else 1
+    for name, fn, plain, bnd in (
+            ('rasterize_interp',
+             lambda: kr.rasterize_interp(*args, **kw),
+             lambda: kr.rasterize_interp_plain(*args, **kw),
+             raster_bound(sc, 4, True)),
+            ('rasterize_select',
+             lambda: kr.rasterize_select(*sel, **kw),
+             lambda: kr.rasterize_select_plain(*sel, **kw),
+             raster_bound(sc, 0, False)),
+            ('soft_mask_forward',
+             lambda: ks.soft_mask_forward(sc.sm_img, sc.sm_bbox, idx_main,
+                                          **skw),
+             lambda: ks.soft_mask_forward_plain(sc.sm_img, sc.sm_bbox,
+                                                idx_main, **skw),
+             soft_bound(sc, idx_main, KNUM))):
+        times[name] = dict(ms=time_ms(fn, TIME_ITERS),
+                           plain_ms=time_ms(plain, plain_iters),
+                           bound_ms=bnd[0], bound_by=bnd[1])
+        log(f'[{sc.name}] time {name}: ' + json.dumps(times[name]))
+    return errs, times
+
+
+def main_path(scenes):
+    """The forward render, as a user calls it, once per (size, width);
+    returns the launches of each kernel in it."""
+    counters = (kr.rasterize_interp, kr.rasterize_select,
+                ks.soft_mask_forward)
+    for c in counters:
+        c.launches = 0
+    outs = {}
+    for sc in scenes:
+        for dim in (4, WIDE):
+            outs[sc.name, dim] = sc.forward(dim)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    log('main path launches: ' + json.dumps(launches))
+    for name, n in launches.items():
+        expect(n > 0, f'{name} was not launched on the main path')
+
+    sphere_cover = math.pi * disc_radius() ** 2 / 4.
+    for (name, dim), (feat, mask, idx, loss) in outs.items():
+        sc = next(s for s in scenes if s.name == name)
+        expect(tuple(feat.shape) == (sc.batch, H, W, dim)
+               and tuple(mask.shape) == (sc.batch, H, W)
+               and tuple(idx.shape) == (sc.batch, H, W), 'output shapes')
+        cov = float((idx >= 0).float().mean())
+        soft = float(mask.mean())
+        log(f'[{name}] D={dim}: coverage {cov:.4f} (sphere '
+            f'{sphere_cover:.4f}), mean soft mask {soft:.4f}, mask_iou vs '
+            f'the sphere silhouette {float(loss):.4f}')
+        expect(bool(torch.isfinite(feat).all() and torch.isfinite(mask).all()
+                    and torch.isfinite(loss)), 'non-finite output')
+        expect(abs(cov - sphere_cover) < 0.02 and soft >= cov
+               and float(mask.min()) >= 0. and float(mask.max()) <= 1.
+               and float(loss) < 0.1, 'implausible coverage or soft mask')
+        expect(bool((idx == outs[name, 4][2]).all()),
+               'face_idx depends on the feature width')
+    return launches, outs
+
+
+def profile_forward(sc, dim, per_call_ms, iters=10):
+    """Device time of the forward render by kernel (``torch.profiler``),
+    and the share of the call's time the card is idle."""
+    warmup = 2
+    traces = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=warmup, active=iters),
+                 on_trace_ready=lambda p: traces.append(p.key_averages())
+                 ) as prof:
+        for _ in range(warmup + iters):
+            sc.forward(dim)
+            torch.cuda.synchronize()
+            prof.step()
+    # the schedule's step markers are device-side ranges, not kernels
+    kernels = [e for e in traces[0]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and not e.key.startswith('ProfilerStep')]
+    if not kernels:
+        log(f'[{sc.name}] profile D={dim}: no device time in the trace; '
+            'busy share not measured')
+        return
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / iters
+    log(f'[{sc.name}] profile D={dim}: device busy {busy_ms:.4f} ms of '
+        f'{per_call_ms:.4f} ms per call, idle share '
+        f'{1. - busy_ms / per_call_ms:.3f}, {len(kernels)} kernels')
+    for e in kernels[:8]:
+        log(f'    {e.self_device_time_total / 1e3 / iters:.4f} ms in '
+            f'{e.count / iters:g} launches: {e.key[:70]}')
+
+
+def check_against_cpu():
+    """A small render on the card against the plain versions on the CPU,
+    from the same prepared vertices."""
+    verts, faces, rot, trans, proj = kt.utils.interop.scene(2, 2,
+                                                            device='cuda')
+    fvc, fvi, fn = kt.render.mesh.prepare_vertices(
+        verts, faces, proj, camera_rot=rot, camera_trans=trans)
+    ff = torch.cat([fvc, torch.ones(fvc.shape[:3] + (1,), device='cuda')],
+                   dim=-1)
+    h, w = 96, 136
+    gpu = kt.render.mesh.dibr_rasterization(h, w, fvc[..., 2], fvi, ff,
+                                            fn[..., 2])
+    cpu = kt.render.mesh.dibr_rasterization(h, w, fvc[..., 2].cpu(),
+                                            fvi.cpu(), ff.cpu(),
+                                            fn[..., 2].cpu())
+    mism = int((gpu[2].cpu() != cpu[2]).sum())
+    ef, em = max_err(gpu[0].cpu(), cpu[0]), max_err(gpu[1].cpu(), cpu[1])
+    log(f'card vs CPU plain at 2x{h}x{w}: face_idx mismatches {mism}, '
+        f'max err features {ef:.3e} soft mask {em:.3e}')
+    expect(mism == 0 and ef <= TOL_CPU and em <= TOL_CPU,
+           'the card disagrees with the CPU')
+
+
+def main():
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device visible', file=sys.stderr)
+        return 2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(card)
+    log(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
+        f'{torch.cuda.get_device_name(0)}')
+    t0 = time.perf_counter()
+    log(f'build: {_build.build_all():.1f} s for {len(_build.SOURCES)} '
+        'sources')
+
+    scenes = [Scene(name, b, s, 'cuda') for name, b, s in SIZES]
+    errs = {name: 0.0 for name in KERNELS}
+    times = {}
+    for sc in scenes:
+        sc_errs, times[sc.name] = kernel_phases(sc)
+        for name, err in sc_errs.items():
+            errs[name] = max(errs[name], err)
+
+    launches, _ = main_path(scenes)
+    for sc in scenes:
+        for dim in (4, WIDE):
+            ms = time_ms(lambda: sc.forward(dim), TIME_ITERS)
+            log(f'[{sc.name}] forward D={dim}: {ms:.4f} ms per call, '
+                f'{ms / sc.batch:.4f} ms/frame '
+                f'(batch {sc.batch}, {sc.num_faces} faces, {H}x{W})')
+            profile_forward(sc, dim, ms)
+    check_against_cpu()
+
+    main = scenes[0]
+    rows = []
+    for name, (source, replaces) in KERNELS.items():
+        t = times[main.name][name]
+        rows.append(dict(name=name, route='cuda', source=source,
+                         replaces=replaces, launches=launches[name],
+                         max_abs_err=errs[name], ms=t['ms'],
+                         plain_ms=t['plain_ms'], bound_ms=t['bound_ms'],
+                         bound_by=t['bound_by'], library_ms=None,
+                         shape=f'batch {main.batch}, {main.num_faces} '
+                               f'faces, {H}x{W}'))
+    log(f'total {time.perf_counter() - t0:.1f} s')
+    log(card)
+    log(json.dumps({'kernels': rows}))
+    log(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

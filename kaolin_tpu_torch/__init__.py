@@ -1,0 +1,17 @@
+"""kaolin_tpu_torch: the PyTorch/CUDA port of ``kaolin_tpu``.
+
+The same public functions as ``kaolin_tpu``, with its shapes, dtypes and
+semantics, on ``torch.Tensor``s. Kernel-backed functions follow their
+inputs: a CUDA tensor runs a hand-written Hopper kernel (built from
+``csrc/`` with ``nvcc`` at first use), a CPU tensor runs the plain PyTorch
+version beside it. Importing the package needs no GPU, ``nvcc`` or
+``triton``.
+"""
+
+from . import kernels
+from . import metrics
+from . import ops
+from . import render
+from . import utils
+
+__version__ = '0.1.0'

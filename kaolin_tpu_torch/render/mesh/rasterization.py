@@ -1,0 +1,134 @@
+"""Differentiable z-buffer rasterization, forward.
+
+Port of ``kaolin_tpu/render/mesh/rasterization.py``. The winner-face
+selection runs in ``kaolin_tpu_torch.kernels.rasterize``: the CUDA kernel
+for CUDA tensors, the plain PyTorch version for CPU tensors. As in the JAX
+package, features that fit the fused route (``14 + 3*D <= 128``) are
+interpolated inside the kernel (interp mode); wider ones take the select
+mode and a gather epilogue.
+
+Face culling (``valid_faces``) gives culled faces the empty bbox
+``(+inf, +inf, -inf, -inf)``, which no pixel is inside.
+
+The analytic backward is the next slice of the port: ``rasterize`` is a
+``torch.autograd.Function`` whose backward raises ``NotImplementedError``.
+"""
+
+import torch
+
+from ...kernels import rasterize as _k
+# the pixel-centre and barycentric helpers live beside the plain versions
+# that use them; re-exported here, where the JAX package defines them
+from ...kernels.rasterize import _pixel_coords, _barycentric  # noqa: F401
+
+__all__ = ['rasterize']
+
+
+def _kernel_inputs(face_vertices_z, face_vertices_image, valid_faces,
+                   multiplier):
+    """The rasterize kernels' face inputs: (z (B,F,3), scaled image verts
+    (B,F,6), scaled bboxes (B,F,4)), culled faces with the empty bbox."""
+    B, F = face_vertices_image.shape[:2]
+    img_scaled = face_vertices_image * multiplier
+    bboxes = torch.cat([img_scaled.amin(dim=2), img_scaled.amax(dim=2)],
+                       dim=-1)
+    if valid_faces is not None:
+        empty = bboxes.new_tensor([torch.inf, torch.inf, -torch.inf,
+                                   -torch.inf])
+        valid = valid_faces.to(bboxes.dtype)[..., None] > 0
+        bboxes = torch.where(valid, bboxes, empty)
+    return face_vertices_z.contiguous(), img_scaled.reshape(B, F, 6), bboxes
+
+
+def _rasterize_forward(height, width, multiplier, eps, total_height,
+                       face_vertices_z, face_vertices_image, face_features,
+                       valid_faces, row_start):
+    """Returns (features (B,H,W,D), face_idx (B,H,W) int32, weights
+    (B,H,W,3)) for rows ``row_start ..`` of a ``total_height`` image."""
+    B, F = face_vertices_image.shape[:2]
+    fz, img_flat, bboxes = _kernel_inputs(face_vertices_z,
+                                          face_vertices_image, valid_faces,
+                                          multiplier)
+    feat_dim = face_features.shape[-1]
+    feats_flat = face_features.reshape(B, F, 3 * feat_dim)
+    kw = dict(height=height, width=width, total_height=total_height,
+              multiplier=multiplier, eps=eps)
+    if 14 + 3 * feat_dim <= 128:
+        return _k.rasterize_interp(fz, img_flat, bboxes, feats_flat,
+                                   row_start, **kw)
+    _, face_idx = _k.rasterize_select(fz, img_flat, bboxes, row_start, **kw)
+    features, weights = _k.interp_epilogue(
+        face_idx, img_flat, feats_flat, row_start, total_height=total_height,
+        multiplier=multiplier, eps=eps)
+    return features, face_idx, weights
+
+
+class _Rasterize(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, face_vertices_z, face_vertices_image, face_features,
+                valid_faces, height, width, multiplier, eps, row_start,
+                total_height):
+        features, face_idx, _ = _rasterize_forward(
+            height, width, multiplier, eps, total_height, face_vertices_z,
+            face_vertices_image, face_features, valid_faces, row_start)
+        ctx.mark_non_differentiable(face_idx)
+        return features, face_idx
+
+    @staticmethod
+    def backward(ctx, grad_features, grad_face_idx):
+        raise NotImplementedError(
+            'rasterize: the analytic backward is not ported yet; it comes '
+            'in the next slice of the PyTorch port (the training step)')
+
+
+def rasterize(height, width, face_vertices_z, face_vertices_image,
+              face_features, valid_faces=None, multiplier=None, eps=None,
+              row_start=0, total_height=None):
+    r"""Rasterization of triangle meshes with per-vertex-per-face features
+    into feature images.
+
+    The device of the inputs picks the route: CUDA tensors run the CUDA
+    kernel (float32 only), CPU tensors the plain version (float32 or
+    float64).
+
+    Args:
+        height, width (int): output image size.
+        face_vertices_z: (batch_size, num_faces, 3) camera-space z
+            (negative forward; the *max* interpolated z wins the z-test).
+        face_vertices_image: (batch_size, num_faces, 3, 2) image-plane
+            coords in [-1, 1].
+        face_features: (batch_size, num_faces, 3, feat_dim) or a
+            list/tuple of such (concatenated then re-split).
+        valid_faces: optional (batch_size, num_faces) bool mask.
+        multiplier (float): coordinate scaling for numerics. Default 1000.
+        eps (float): barycentric normalization epsilon. Default 1e-8.
+        row_start, total_height (int): render rows ``row_start ..
+            row_start + height`` of a ``total_height`` x ``width`` image.
+
+    Returns:
+        (interpolated_features (B, H, W, feat_dim) — or tuple if
+        ``face_features`` was a list — and face_idx (B, H, W) int32,
+        -1 where uncovered).
+    """
+    if multiplier is None:
+        multiplier = 1000
+    if eps is None:
+        eps = 1e-8
+    if total_height is None:
+        total_height = height
+    is_multi = isinstance(face_features, (list, tuple))
+    _face_features = torch.cat(list(face_features), dim=-1) if is_multi \
+        else face_features
+    image_features, face_idx = _Rasterize.apply(
+        face_vertices_z, face_vertices_image, _face_features, valid_faces,
+        int(height), int(width), float(multiplier), float(eps),
+        int(row_start), int(total_height))
+    if is_multi:
+        outs = []
+        cur = 0
+        for f in face_features:
+            outs.append(image_features[..., cur:cur + f.shape[-1]])
+            cur += f.shape[-1]
+        image_features = tuple(outs)
+    return image_features, face_idx

@@ -1,0 +1,96 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. Marked ``cuda``; each test skips where no CUDA device is visible.
+Run them on a GPU machine with::
+
+    python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
+
+(``--noconftest``: ``tests/conftest.py`` sets up JAX, which this file
+does not use.)
+
+The kernels repeat the plain versions' operations in their order without
+fused multiply-adds, so face indices, weights and features agree exactly;
+the soft mask to 1e-6 (``expf``).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import kaolin_tpu_torch as kt
+from kaolin_tpu_torch.kernels import rasterize as kr
+from kaolin_tpu_torch.kernels import soft_mask as ks
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    return torch.device('cuda')
+
+
+def _inputs(device, seed=0, batch=2, faces=300, dim=4):
+    rng = np.random.default_rng(seed)
+    centre = rng.uniform(-0.9, 0.9, (batch, faces, 1, 2))
+    fvi = centre + rng.uniform(-0.1, 0.1, (batch, faces, 3, 2))
+    fvz = -1. - rng.random((batch, faces, 3))
+    ff = rng.standard_normal((batch, faces, 3, dim))
+    return tuple(torch.tensor(a, dtype=torch.float32, device=device)
+                 for a in (fvz, fvi, ff))
+
+
+@pytest.mark.parametrize('size', [(64, 64), (40, 72), (33, 130)])
+@pytest.mark.parametrize('dim', [4, 40])
+def test_rasterize_kernel_matches_plain(cuda, size, dim):
+    fvz, fvi, ff = _inputs(cuda, dim=dim)
+    valid = torch.rand(fvz.shape[:2], device=cuda) > 0.2
+    from kaolin_tpu_torch.render.mesh.rasterization import _kernel_inputs
+    fz, img, bbox = _kernel_inputs(fvz, fvi, valid, 1000.)
+    kw = dict(height=size[0], width=size[1], multiplier=1000., eps=1e-8,
+              row_start=3, total_height=size[0] + 7)
+    feats = ff.reshape(2, -1, 3 * dim)
+    n = kr.rasterize_interp.launches
+    out = kr.rasterize_interp(fz, img, bbox, feats, **kw)
+    assert kr.rasterize_interp.launches == n + 1
+    ref = kr.rasterize_interp_plain(fz, img, bbox, feats, **kw)
+    for o, r in zip(out, ref):
+        assert torch.equal(o, r)
+    z, idx = kr.rasterize_select(fz, img, bbox, **kw)
+    zp, idxp = kr.rasterize_select_plain(fz, img, bbox, **kw)
+    assert torch.equal(idx, idxp) and torch.equal(z, zp)
+
+
+@pytest.mark.parametrize('knum', [30, 3])
+def test_soft_mask_kernel_matches_plain(cuda, knum):
+    fvz, fvi, ff = _inputs(cuda, faces=400)
+    _, idx = kt.render.mesh.rasterize(48, 80, fvz, fvi, ff)
+    from kaolin_tpu_torch.render.mesh.dibr import _scaled_inputs
+    img, bbox = _scaled_inputs(fvi, 0.05, 1000.)
+    kw = dict(height=48, width=80, knum=knum, sigmainv=7000.,
+              multiplier=1000.)
+    n = ks.soft_mask_forward.launches
+    out = ks.soft_mask_forward(img, bbox, idx, **kw)
+    assert ks.soft_mask_forward.launches == n + 1
+    ref = ks.soft_mask_forward_plain(img, bbox, idx, **kw)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
+
+
+def test_cuda_rejects_float64(cuda):
+    fvz, fvi, ff = (t.double() for t in _inputs(cuda))
+    with pytest.raises(TypeError, match='float32'):
+        kt.render.mesh.rasterize(16, 16, fvz, fvi, ff)
+
+
+def test_render_on_card_matches_cpu(cuda):
+    verts, faces, rot, trans, proj = kt.utils.interop.scene(2, 2,
+                                                            device=cuda)
+    fvc, fvi, fn = kt.render.mesh.prepare_vertices(
+        verts, faces, proj, camera_rot=rot, camera_trans=trans)
+    args = (fvc[..., 2], fvi, fvc, fn[..., 2])
+    gpu = kt.render.mesh.dibr_rasterization(64, 96, *args)
+    cpu = kt.render.mesh.dibr_rasterization(64, 96,
+                                            *(a.cpu() for a in args))
+    assert torch.equal(gpu[2].cpu(), cpu[2])
+    torch.testing.assert_close(gpu[0].cpu(), cpu[0], rtol=0, atol=1e-6)
+    torch.testing.assert_close(gpu[1].cpu(), cpu[1], rtol=0, atol=1e-6)
