@@ -8,16 +8,28 @@ Run from the root of the repository, on a machine with a CUDA card and
 
 It builds the port's CUDA kernels from ``kaolin_tpu_torch/csrc/``, holds
 each kernel against its plain PyTorch version on the card at the shapes of
-the DIB-R forward render, drives that render (``prepare_vertices`` ->
-``dibr_rasterization`` -> ``mask_iou``) at two sizes and checks that every
-kernel ran in it, checks the render against the plain version on the CPU
-on a small input, and times it all with CUDA events.
+the DIB-R forward render and train step, and drives two paths at two sizes,
+checking that every kernel of each ran in it:
+
+- the forward render (``prepare_vertices`` -> ``dibr_rasterization`` ->
+  ``mask_iou``);
+- the train step of ``bench.py`` (the same, then L1 of the features plus
+  ``mask_iou``, gradients to the vertices, 20 chained ``v - 1e-7*g``
+  steps), timed as ``dibr_512x512_fwd_bwd_ms_per_frame``.
+
+It then checks the render and the gradient against the plain versions on
+the CPU on a small input, fits a sphere's silhouette to an ellipsoid's
+with Adam (batch 1, 256x256, silhouette loss only, ``bench_suite.py``'s
+config 1), and times it all with CUDA events and ``torch.profiler``.
 
 Sizes: ``bench.py``'s (batch 4, icosphere subdivision 3 = 1,280 faces,
 512x512) and the face count of ``bench_suite.py``'s config 2 (batch 8,
 subdivision 5 = 20,480 faces, 512x512). Each size is rendered with 4
 features per vertex (camera-space xyz and 1) and with 40 (the same plus 36
-seeded random channels), which takes the wide-feature route.
+seeded random channels), which takes the wide-feature route; the train
+step uses 4. Its silhouette target is the sphere's analytic disc (with
+``bench.py``'s all-zero target the IoU gradient is exactly zero and the
+soft-mask backward would have nothing to do).
 
 Output: the card line from ``nvidia-smi``, one line per check, a JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``. Any
@@ -38,6 +50,7 @@ from torch.profiler import ProfilerActivity, profile, schedule
 import kaolin_tpu_torch as kt
 from kaolin_tpu_torch.kernels import _build
 from kaolin_tpu_torch.kernels import rasterize as kr
+from kaolin_tpu_torch.kernels import rasterize_bwd as krb
 from kaolin_tpu_torch.kernels import soft_mask as ks
 from kaolin_tpu_torch.kernels.rasterize import _pixel_coords
 from kaolin_tpu_torch.render.mesh.dibr import _scaled_inputs
@@ -49,6 +62,13 @@ SIZES = (('bench', 4, 3), ('config2', 8, 5))   # (name, batch, subdiv)
 WIDE = 40                                      # features of the wide route
 KNUM = 30                                      # dibr_soft_mask default
 TIME_ITERS = 20
+TRAIN_STEPS = 20                               # bench.py's ITERS
+TRAIN_LR = 1e-7                                # bench.py's step
+# the fit: batch 1, 256x256, Adam on the vertices toward an ellipsoid's
+# silhouette; the IoU loss must fall by FIT_FACTOR and below FIT_BELOW
+FIT_SIZE, FIT_STEPS, FIT_LR = 256, 100, 1e-2
+FIT_SCALE = (1.3, 0.75, 1.0)
+FIT_FACTOR, FIT_BELOW = 10., 0.05
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores
@@ -62,6 +82,14 @@ PEAK_F32 = 67e12
 # 5-way min, z, exp, 1-p and the product
 OPS_RASTER_PAIR = 26
 OPS_SOFT_PAIR = 3 * 38 + 3 * 5 + 5 + 3 + 1 + 2
+# rasterize backward, per covered pixel: x0, y0 (10), the 6 differences,
+# k1..k3 and the guard (11), the dw table (28), dw/dax.. (12), the 2 sums
+# over the D channels (6 per channel), 1/k3^2 (3), the 6 outputs and their
+# sums (24); w_i * g_d and its sum (6 per channel)
+OPS_RBWD_PIXEL, OPS_RBWD_CHANNEL = 94, 12
+# soft-mask backward, per recorded pair: the forward's distance work, dLdz
+# (6) and the derivative of the nearest edge (44; a vertex takes 6)
+OPS_SOFT_BWD_PAIR = OPS_SOFT_PAIR + 6 + 44
 
 # stated tolerances, kernel vs plain version on the card (float32): the
 # kernels repeat the plain version's operations in its order without fused
@@ -73,6 +101,11 @@ TOL_MASK = 1e-6
 # the card's render vs the plain version on the CPU from the same prepared
 # vertices: the same arithmetic, so indices agree exactly
 TOL_CPU = 1e-5
+# gradients, kernel vs plain version on the card and the card vs the CPU:
+# every entry within GRAD_TOL of itself plus GRAD_TOL of the median nonzero
+# entry (the per-pixel terms are the same, the per-face sums run in other
+# orders); a face whose sum is wrong fails however large the largest is
+GRAD_TOL = 1e-4
 
 KERNELS = {
     'rasterize_interp': ('kaolin_tpu_torch/csrc/rasterize.cu',
@@ -81,7 +114,13 @@ KERNELS = {
                          'kaolin_tpu/kernels/rasterize.py:527'),
     'soft_mask_forward': ('kaolin_tpu_torch/csrc/soft_mask.cu',
                           'kaolin_tpu/kernels/soft_mask.py:418'),
+    'rasterize_backward': ('kaolin_tpu_torch/csrc/rasterize_bwd.cu',
+                           'kaolin_tpu/kernels/rasterize_bwd.py:159'),
+    'soft_mask_backward': ('kaolin_tpu_torch/csrc/soft_mask.cu',
+                           'kaolin_tpu/kernels/soft_mask.py:468'),
 }
+COUNTERS = (kr.rasterize_interp, kr.rasterize_select, ks.soft_mask_forward,
+            krb.rasterize_backward, ks.soft_mask_backward)
 
 
 def log(*args):
@@ -159,6 +198,7 @@ class Scene:
             fvc[..., 2], fvi, fn[..., 2] >= 0., 1000.)
         self.feat4 = self.features(fvc, 4).reshape(batch, -1, 12)
         self.sm_img, self.sm_bbox = _scaled_inputs(fvi, 0.02, 1000.)
+        self.fvc, self.fvi = fvc, fvi.reshape(batch, -1, 6)
 
     def features(self, fvc, dim):
         ones = torch.ones(fvc.shape[:3] + (1,), device=fvc.device)
@@ -178,6 +218,39 @@ class Scene:
             H, W, fvc[..., 2], fvi, self.features(fvc, dim), fn[..., 2])
         loss = kt.metrics.render.mask_iou(soft_mask, self.target)
         return feat, soft_mask, face_idx, loss
+
+    def train_loss(self, verts, dim=4):
+        """``bench.py``'s loss: L1 of the features to 0 plus mask_iou."""
+        _, faces, rot, trans, proj = self.args
+        fvc, fvi, fn = kt.render.mesh.prepare_vertices(
+            verts, faces, proj, camera_rot=rot, camera_trans=trans)
+        feat, soft_mask, _ = kt.render.mesh.dibr_rasterization(
+            H, W, fvc[..., 2], fvi, self.features(fvc, dim), fn[..., 2])
+        return (feat.abs().mean()
+                + kt.metrics.render.mask_iou(soft_mask, self.target))
+
+    def train(self, steps):
+        """``steps`` chained train steps from the scene's vertices, as a
+        user writes them; returns (vertices, losses, last gradient)."""
+        v, losses = self.args[0], []
+        for _ in range(steps):
+            v = v.detach().requires_grad_(True)
+            loss = self.train_loss(v)
+            g, = torch.autograd.grad(loss, [v])
+            v = v.detach() - TRAIN_LR * g
+            losses.append(loss.detach())
+        return v, losses, g
+
+    def cotangents(self, dim):
+        """The train step's cotangents of the features and the soft mask,
+        with the face indices and mask they belong to."""
+        feat, mask, idx, _ = self.forward(dim)
+        feat = feat.detach().requires_grad_(True)
+        mask = mask.detach().requires_grad_(True)
+        loss = (feat.abs().mean()
+                + kt.metrics.render.mask_iou(mask, self.target))
+        g_feat, g_mask = torch.autograd.grad(loss, [feat, mask])
+        return g_feat, g_mask, idx
 
 
 def pixel_hits(bbox, height, width):
@@ -223,6 +296,30 @@ def soft_bound(sc, face_idx, knum):
     hits = pixel_hits(sc.sm_bbox, H, W).clamp(max=knum)
     pairs = int(hits[face_idx < 0].sum())
     return bound(nbytes, pairs * OPS_SOFT_PAIR)
+
+
+def raster_bwd_bound(sc, face_idx, dim):
+    B, F = sc.batch, sc.num_faces
+    covered = int((face_idx >= 0).sum())
+    # idx at every pixel, grad (D) and weights (3) at covered pixels in;
+    # verts and features (6 + 3D) per face in, and their gradients out
+    nbytes = 4 * (B * H * W + covered * (dim + 3)
+                  + 2 * B * F * (6 + 3 * dim))
+    ops = covered * (OPS_RBWD_PIXEL + OPS_RBWD_CHANNEL * dim)
+    return bound(nbytes, ops)
+
+
+def soft_bwd_bound(sm_bbox, cut, grad, knum):
+    B, F = sm_bbox.shape[:2]
+    hits = pixel_hits(sm_bbox, H, W).clamp(max=knum)
+    recorded = (cut >= 0) & (hits > 0)
+    live = recorded & (grad != 0)
+    # the cut at every pixel, grad where a face recorded the pixel, the
+    # mask where grad is also nonzero; verts and enlarged bbox (10) per
+    # face in, 6 gradients out
+    nbytes = 4 * (B * H * W + int(recorded.sum()) + int(live.sum())
+                  + B * F * 16)
+    return bound(nbytes, int(hits[live].sum()) * OPS_SOFT_BWD_PAIR)
 
 
 def bound(nbytes, ops):
@@ -278,16 +375,19 @@ def kernel_phases(sc):
     for knum in (KNUM, sc.num_faces, 2):
         skw = dict(height=H, width=W, knum=knum, sigmainv=7000.,
                    multiplier=1000.)
-        m_k = ks.soft_mask_forward(sc.sm_img, sc.sm_bbox, idx_main, **skw)
-        m_p = ks.soft_mask_forward_plain(sc.sm_img, sc.sm_bbox, idx_main,
-                                         **skw)
+        m_k, c_k = ks.soft_mask_forward(sc.sm_img, sc.sm_bbox, idx_main,
+                                        return_cut=True, **skw)
+        m_p, c_p = ks.soft_mask_forward_plain(sc.sm_img, sc.sm_bbox,
+                                              idx_main, return_cut=True,
+                                              **skw)
         torch.cuda.synchronize()
         em = max_err(m_k, m_p)
+        cut_mism = int((c_k != c_p).sum())
         binds = int((hits > knum).sum())
         log(f'[{sc.name}] soft_mask_forward knum={knum}: pixels where knum '
-            f'binds {binds}, max err {em:.3e}')
-        expect(em <= TOL_MASK, 'soft_mask_forward disagrees with its plain '
-               f'version at knum={knum}')
+            f'binds {binds}, max err {em:.3e}, cut mismatches {cut_mism}')
+        expect(em <= TOL_MASK and cut_mism == 0, 'soft_mask_forward '
+               f'disagrees with its plain version at knum={knum}')
         record('soft_mask_forward', em)
 
     # slab with culling: rows 128..319 of the 512-row image
@@ -336,22 +436,128 @@ def kernel_phases(sc):
     return errs, times
 
 
+def grad_close(label, out, ref):
+    """Prints and checks a gradient against its reference entry by entry:
+    |out - ref| <= GRAD_TOL * (|ref| + median nonzero |ref|). Returns the
+    largest absolute error."""
+    d = (out.double() - ref.double()).abs()
+    r = ref.double().abs()
+    nonzero = r[r != 0]
+    med = float(nonzero.median()) if nonzero.numel() else 0.
+    ratio = float((d / (GRAD_TOL * (r + med)).clamp(min=1e-300)).max())
+    err = float(d.max())
+    log(f'{label}: max abs err {err:.3e}, largest |ref| {float(r.max()):.3e}, '
+        f'median nonzero |ref| {med:.3e}, worst entry at {ratio:.3e} of its '
+        f'tolerance {GRAD_TOL:g} * (|ref| + median), finite '
+        f'{bool(torch.isfinite(out).all())}')
+    expect(med > 0. and ratio <= 1. and bool(torch.isfinite(out).all()),
+           f'{label}: out of tolerance')
+    return err
+
+
+def grad_errors(label, out, again, ref):
+    """Checks the kernel's gradients against the plain version's and two
+    launches against each other; returns the largest absolute error."""
+    worst = 0.
+    for name, o, a, r in zip(('image verts', 'features'), out, again, ref):
+        same = bool(torch.equal(o, a))
+        worst = max(worst, grad_close(f'{label} grad {name}', o, r))
+        log(f'{label} grad {name}: two launches bit-identical {same}')
+        expect(same, f'{label}: two launches differ')
+    return worst
+
+
+def backward_phases(sc):
+    """Each backward kernel against its plain version on the card, at this
+    size's shapes, with a seeded random cotangent and the train step's
+    own; then each timed with the train step's. At config2's face count
+    the soft mask's plain version runs on the first batch element only.
+    Returns ({kernel: max abs error}, {kernel: times}); the key
+    'rasterize_backward' is D = 4, the train step's width."""
+    errs = dict.fromkeys(('rasterize_backward', 'soft_mask_backward'), 0.)
+    times = {}
+    gen = torch.Generator('cuda').manual_seed(SEED)
+    nb = sc.batch if sc.num_faces < 4096 else 1
+    plain_iters = 3 if sc.num_faces < 4096 else 1
+
+    def timed(key, fn, plain, bnd, plain_batch):
+        times[key] = dict(ms=time_ms(fn, TIME_ITERS),
+                          plain_ms=time_ms(plain, plain_iters),
+                          bound_ms=bnd[0], bound_by=bnd[1])
+        log(f'[{sc.name}] time {key} (train cotangents; plain version at '
+            f'batch {plain_batch}): ' + json.dumps(times[key]))
+
+    for dim in (4, WIDE):
+        feats = sc.features(sc.fvc, dim).reshape(sc.batch, -1, 3 * dim)
+        _, idx, weights = kr.rasterize_interp(
+            sc.fz, sc.img, sc.bbox, feats, height=H, width=W,
+            multiplier=1000., eps=1e-8)
+        g_feat, g_mask, _ = sc.cotangents(dim)
+        rand = torch.randn(g_feat.shape, device='cuda', generator=gen)
+        for cot_name, cot in (('random', rand), ('train', g_feat)):
+            args = (cot, idx, weights, sc.fvi, feats)
+            out = krb.rasterize_backward(*args, eps=1e-8)
+            again = krb.rasterize_backward(*args, eps=1e-8)
+            ref = krb.rasterize_backward_plain(*args, eps=1e-8)
+            torch.cuda.synchronize()
+            errs['rasterize_backward'] = max(
+                errs['rasterize_backward'], grad_errors(
+                    f'[{sc.name}] rasterize_backward D={dim} {cot_name} '
+                    'cotangent', out, again, ref))
+        timed('rasterize_backward' + ('' if dim == 4 else f' D={dim}'),
+              lambda: krb.rasterize_backward(*args, eps=1e-8),
+              lambda: krb.rasterize_backward_plain(*args, eps=1e-8),
+              raster_bwd_bound(sc, idx, dim), sc.batch)
+
+    # the mask's cotangent does not depend on the feature width
+    rand = torch.randn(g_mask.shape, device='cuda', generator=gen)
+    skw = dict(height=H, width=W, sigmainv=7000., multiplier=1000.)
+    for knum, cot_name, cot in ((KNUM, 'random', rand),
+                                (2, 'train', g_mask),
+                                (KNUM, 'train', g_mask)):
+        mask, cut = ks.soft_mask_forward(sc.sm_img, sc.sm_bbox, idx,
+                                         knum=knum, return_cut=True, **skw)
+        args = (sc.sm_img, sc.sm_bbox, cut, mask, cot)
+        out = ks.soft_mask_backward(*args, **skw)
+        again = ks.soft_mask_backward(*args, **skw)
+        ref = ks.soft_mask_backward_plain(*(a[:nb] for a in args), **skw)
+        torch.cuda.synchronize()
+        errs['soft_mask_backward'] = max(
+            errs['soft_mask_backward'], grad_errors(
+                f'[{sc.name}] soft_mask_backward knum={knum} {cot_name} '
+                f'cotangent (plain on {nb} of {sc.batch})',
+                (out[:nb],), (again[:nb],), (ref,)))
+    timed('soft_mask_backward', lambda: ks.soft_mask_backward(*args, **skw),
+          lambda: ks.soft_mask_backward_plain(*(a[:nb] for a in args),
+                                              **skw),
+          soft_bwd_bound(sc.sm_bbox, cut, g_mask, KNUM), nb)
+    return errs, times
+
+
+def reset_counters():
+    for c in COUNTERS:
+        c.launches = 0
+
+
+def read_counters(path):
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in COUNTERS}
+    log(f'{path} launches: ' + json.dumps(launches))
+    return launches
+
+
 def main_path(scenes):
     """The forward render, as a user calls it, once per (size, width);
     returns the launches of each kernel in it."""
-    counters = (kr.rasterize_interp, kr.rasterize_select,
-                ks.soft_mask_forward)
-    for c in counters:
-        c.launches = 0
+    reset_counters()
     outs = {}
     for sc in scenes:
         for dim in (4, WIDE):
             outs[sc.name, dim] = sc.forward(dim)
-    torch.cuda.synchronize()
-    launches = {c.__name__: c.launches for c in counters}
-    log('main path launches: ' + json.dumps(launches))
-    for name, n in launches.items():
-        expect(n > 0, f'{name} was not launched on the main path')
+    launches = read_counters('forward path')
+    for name in ('rasterize_interp', 'rasterize_select', 'soft_mask_forward'):
+        expect(launches[name] > 0,
+               f'{name} was not launched on the forward path')
 
     sphere_cover = math.pi * disc_radius() ** 2 / 4.
     for (name, dim), (feat, mask, idx, loss) in outs.items():
@@ -374,9 +580,33 @@ def main_path(scenes):
     return launches, outs
 
 
-def profile_forward(sc, dim, per_call_ms, iters=10):
-    """Device time of the forward render by kernel (``torch.profiler``),
-    and the share of the call's time the card is idle."""
+def train_path(scenes):
+    """The train step, as a user writes it, TRAIN_STEPS chained steps per
+    size; returns the launches of each kernel in it."""
+    reset_counters()
+    outs = [(sc, sc.train(TRAIN_STEPS)) for sc in scenes]
+    launches = read_counters('train path')
+    # D = 4 takes the fused route: the select mode is not on this path
+    for name in ('rasterize_interp', 'soft_mask_forward',
+                 'rasterize_backward', 'soft_mask_backward'):
+        expect(launches[name] > 0,
+               f'{name} was not launched on the train path')
+    for sc, (v, losses, g) in outs:
+        gmax = float(g.abs().max())
+        moved = float((v - sc.args[0]).abs().max())
+        log(f'[{sc.name}] train: loss {float(losses[0]):.6f} -> '
+            f'{float(losses[-1]):.6f} over {TRAIN_STEPS} steps, largest '
+            f'|grad| {gmax:.4e}, vertices moved by up to {moved:.3e}')
+        expect(bool(torch.isfinite(g).all() and torch.isfinite(v).all())
+               and all(bool(torch.isfinite(x)) for x in losses)
+               and gmax > 0., f'[{sc.name}] train step: non-finite or zero '
+               'gradient')
+    return launches
+
+
+def profile_calls(label, fn, per_call_ms, iters=10):
+    """Device time of ``fn`` by kernel (``torch.profiler``), and the share
+    of the call's time the card is idle."""
     warmup = 2
     traces = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -384,7 +614,7 @@ def profile_forward(sc, dim, per_call_ms, iters=10):
                  on_trace_ready=lambda p: traces.append(p.key_averages())
                  ) as prof:
         for _ in range(warmup + iters):
-            sc.forward(dim)
+            fn()
             torch.cuda.synchronize()
             prof.step()
     # the schedule's step markers are device-side ranges, not kernels
@@ -393,14 +623,14 @@ def profile_forward(sc, dim, per_call_ms, iters=10):
                and e.self_device_time_total > 0
                and not e.key.startswith('ProfilerStep')]
     if not kernels:
-        log(f'[{sc.name}] profile D={dim}: no device time in the trace; '
-            'busy share not measured')
+        log(f'{label}: no device time in the trace; busy share not '
+            'measured')
         return
     kernels.sort(key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / iters
-    log(f'[{sc.name}] profile D={dim}: device busy {busy_ms:.4f} ms of '
-        f'{per_call_ms:.4f} ms per call, idle share '
-        f'{1. - busy_ms / per_call_ms:.3f}, {len(kernels)} kernels')
+    log(f'{label}: device busy {busy_ms:.4f} ms of {per_call_ms:.4f} ms per '
+        f'call, idle share {1. - busy_ms / per_call_ms:.3f}, '
+        f'{len(kernels)} kernels')
     for e in kernels[:8]:
         log(f'    {e.self_device_time_total / 1e3 / iters:.4f} ms in '
             f'{e.count / iters:g} launches: {e.key[:70]}')
@@ -428,6 +658,59 @@ def check_against_cpu():
     expect(mism == 0 and ef <= TOL_CPU and em <= TOL_CPU,
            'the card disagrees with the CPU')
 
+    def grad_of(device):
+        v = verts.detach().to(device).requires_grad_(True)
+        fvc, fvi, fn = kt.render.mesh.prepare_vertices(
+            v, faces.to(device), proj.to(device), camera_rot=rot.to(device),
+            camera_trans=trans.to(device))
+        ff = torch.cat([fvc, torch.ones(fvc.shape[:3] + (1,),
+                                        device=device)], dim=-1)
+        feat, mask, _ = kt.render.mesh.dibr_rasterization(
+            h, w, fvc[..., 2], fvi, ff, fn[..., 2])
+        target = torch.roll(mask.detach(), 5, dims=2)
+        loss = feat.abs().mean() + kt.metrics.render.mask_iou(mask, target)
+        return torch.autograd.grad(loss, [v])[0]
+
+    grad_close('card vs CPU plain, gradient to the vertices of L1 + '
+               'mask_iou', grad_of('cuda').cpu(), grad_of('cpu'))
+
+
+def fit():
+    """Config 1's drive: fit the unit sphere's silhouette to an
+    ellipsoid's with Adam, batch 1, 256x256, silhouette loss only; the
+    target is rendered by the port itself."""
+    verts, faces, rot, trans, proj = kt.utils.interop.scene(1, 3,
+                                                            device='cuda')
+
+    def render(v):
+        fvc, fvi, fn = kt.render.mesh.prepare_vertices(
+            v, faces, proj, camera_rot=rot, camera_trans=trans)
+        ones = torch.ones(fvc.shape[:3] + (1,), device='cuda')
+        _, mask, _ = kt.render.mesh.dibr_rasterization(
+            FIT_SIZE, FIT_SIZE, fvc[..., 2], fvi, ones, fn[..., 2])
+        return mask
+
+    with torch.no_grad():
+        target = render(verts * torch.tensor(FIT_SCALE, device='cuda'))
+    v = verts.clone().requires_grad_(True)
+    opt = torch.optim.Adam([v], lr=FIT_LR)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(FIT_STEPS):
+        loss = kt.metrics.render.mask_iou(render(v), target)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    secs = time.perf_counter() - t0
+    log(f'fit: IoU loss {losses[0]:.6f} -> {losses[-1]:.6f} in {FIT_STEPS} '
+        f'Adam steps ({losses[0] / losses[-1]:.1f}x; must fall by '
+        f'{FIT_FACTOR:g}x and below {FIT_BELOW:g}), {secs:.2f} s; after 10, '
+        f'25, 50 steps: {losses[9]:.6f} {losses[24]:.6f} {losses[49]:.6f}')
+    expect(all(math.isfinite(x) for x in losses)
+           and losses[-1] * FIT_FACTOR <= losses[0]
+           and losses[-1] < FIT_BELOW, 'the fit did not converge')
+
 
 def main():
     if not torch.cuda.is_available():
@@ -449,7 +732,9 @@ def main():
     times = {}
     for sc in scenes:
         sc_errs, times[sc.name] = kernel_phases(sc)
-        for name, err in sc_errs.items():
+        bwd_errs, bwd_times = backward_phases(sc)
+        times[sc.name].update(bwd_times)
+        for name, err in {**sc_errs, **bwd_errs}.items():
             errs[name] = max(errs[name], err)
 
     launches, _ = main_path(scenes)
@@ -459,8 +744,23 @@ def main():
             log(f'[{sc.name}] forward D={dim}: {ms:.4f} ms per call, '
                 f'{ms / sc.batch:.4f} ms/frame '
                 f'(batch {sc.batch}, {sc.num_faces} faces, {H}x{W})')
-            profile_forward(sc, dim, ms)
+            profile_calls(f'[{sc.name}] profile forward D={dim}',
+                          lambda: sc.forward(dim), ms)
+
+    train_launches = train_path(scenes)
+    for name in ('rasterize_backward', 'soft_mask_backward'):
+        launches[name] = train_launches[name]
+    per_frame = {}
+    for sc in scenes:
+        ms = time_ms(lambda: sc.train(TRAIN_STEPS), 1) / TRAIN_STEPS
+        per_frame[sc.name] = ms / sc.batch
+        log(f'[{sc.name}] train step D=4: {ms:.4f} ms per step, '
+            f'{ms / sc.batch:.4f} ms/frame (batch {sc.batch}, '
+            f'{sc.num_faces} faces, {H}x{W}, {TRAIN_STEPS} chained steps)')
+        profile_calls(f'[{sc.name}] profile train step',
+                      lambda: sc.train(1), ms)
     check_against_cpu()
+    fit()
 
     main = scenes[0]
     rows = []
@@ -474,6 +774,9 @@ def main():
                          shape=f'batch {main.batch}, {main.num_faces} '
                                f'faces, {H}x{W}'))
     log(f'total {time.perf_counter() - t0:.1f} s')
+    log(json.dumps({'metric': 'dibr_512x512_fwd_bwd_ms_per_frame',
+                    'value': per_frame[main.name], 'unit': 'ms/frame',
+                    'config2_value': per_frame[scenes[1].name]}))
     log(card)
     log(json.dumps({'kernels': rows}))
     log(json.dumps({'ok': True, 'device': {

@@ -1,4 +1,4 @@
-"""DIB-R soft silhouette and the full rasterization pipeline, forward.
+"""DIB-R soft silhouette and the full rasterization pipeline.
 
 Port of ``kaolin_tpu/render/mesh/dibr.py``. The soft mask runs in
 ``kaolin_tpu_torch.kernels.soft_mask``: the CUDA kernel for CUDA tensors,
@@ -8,14 +8,16 @@ XLA path; so the JAX side's ``knum_exact`` switch and its host probe of
 whether ``knum`` binds have nothing to choose here. ``knum_exact`` is
 accepted and changes nothing.
 
-The analytic backward is the next slice of the port: ``dibr_soft_mask`` is
-a ``torch.autograd.Function`` whose backward raises
-``NotImplementedError``.
+The analytic backward (``soft_mask_backward``, beside the forward) gives
+the gradient of the image verts. When that gradient is needed, the forward
+also returns the cut (which faces each pixel recorded) and saves it with
+its scaled inputs.
 """
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from ...kernels.soft_mask import soft_mask_forward
+from ...kernels.soft_mask import soft_mask_backward, soft_mask_forward
 from .rasterization import rasterize
 
 __all__ = ['dibr_soft_mask', 'dibr_rasterization']
@@ -40,16 +42,26 @@ class _DibrSoftMask(torch.autograd.Function):
         img_scaled, bboxes = _scaled_inputs(face_vertices_image, boxlen,
                                             multiplier)
         _, H, W = selected_face_idx.shape
-        return soft_mask_forward(
-            img_scaled, bboxes, selected_face_idx.to(torch.int32), row_start,
-            height=H, width=W, total_height=total_height, knum=knum,
-            sigmainv=sigmainv, multiplier=multiplier)
+        face_idx = selected_face_idx.to(torch.int32)
+        kw = dict(row_start=row_start, height=H, width=W,
+                  total_height=total_height, sigmainv=sigmainv,
+                  multiplier=multiplier)
+        if not ctx.needs_input_grad[0]:
+            return soft_mask_forward(img_scaled, bboxes, face_idx, knum=knum,
+                                     **kw)
+        mask, cut = soft_mask_forward(img_scaled, bboxes, face_idx, knum=knum,
+                                      return_cut=True, **kw)
+        ctx.save_for_backward(img_scaled, bboxes, cut, mask)
+        ctx.kw = kw
+        ctx.shape = face_vertices_image.shape
+        return mask
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, grad_soft_mask):
-        raise NotImplementedError(
-            'dibr_soft_mask: the analytic backward is not ported yet; it '
-            'comes in the next slice of the PyTorch port (the training step)')
+        grad = soft_mask_backward(*ctx.saved_tensors,
+                                  grad_soft_mask.contiguous(), **ctx.kw)
+        return (grad.reshape(ctx.shape),) + (None,) * 7
 
 
 def dibr_soft_mask(face_vertices_image, selected_face_idx, sigmainv=7000,

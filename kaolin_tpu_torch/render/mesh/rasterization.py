@@ -1,4 +1,4 @@
-"""Differentiable z-buffer rasterization, forward.
+"""Differentiable z-buffer rasterization.
 
 Port of ``kaolin_tpu/render/mesh/rasterization.py``. The winner-face
 selection runs in ``kaolin_tpu_torch.kernels.rasterize``: the CUDA kernel
@@ -10,13 +10,16 @@ mode and a gather epilogue.
 Face culling (``valid_faces``) gives culled faces the empty bbox
 ``(+inf, +inf, -inf, -inf)``, which no pixel is inside.
 
-The analytic backward is the next slice of the port: ``rasterize`` is a
-``torch.autograd.Function`` whose backward raises ``NotImplementedError``.
+The analytic backward (``kaolin_tpu_torch.kernels.rasterize_bwd``) gives
+the gradients of the image verts and the features; as in the JAX package,
+``face_vertices_z`` and ``valid_faces`` get none.
 """
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ...kernels import rasterize as _k
+from ...kernels.rasterize_bwd import rasterize_backward
 # the pixel-centre and barycentric helpers live beside the plain versions
 # that use them; re-exported here, where the JAX package defines them
 from ...kernels.rasterize import _pixel_coords, _barycentric  # noqa: F401
@@ -69,17 +72,30 @@ class _Rasterize(torch.autograd.Function):
     def forward(ctx, face_vertices_z, face_vertices_image, face_features,
                 valid_faces, height, width, multiplier, eps, row_start,
                 total_height):
-        features, face_idx, _ = _rasterize_forward(
+        features, face_idx, weights = _rasterize_forward(
             height, width, multiplier, eps, total_height, face_vertices_z,
             face_vertices_image, face_features, valid_faces, row_start)
         ctx.mark_non_differentiable(face_idx)
+        ctx.save_for_backward(face_idx, weights, face_vertices_image,
+                              face_features)
+        ctx.eps, ctx.row_start, ctx.total_height = eps, row_start, \
+            total_height
         return features, face_idx
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, grad_features, grad_face_idx):
-        raise NotImplementedError(
-            'rasterize: the analytic backward is not ported yet; it comes '
-            'in the next slice of the PyTorch port (the training step)')
+        face_idx, weights, face_vertices_image, face_features = \
+            ctx.saved_tensors
+        B, F = face_vertices_image.shape[:2]
+        D = face_features.shape[-1]
+        grad_img, grad_feat = rasterize_backward(
+            grad_features.contiguous(), face_idx, weights,
+            face_vertices_image.reshape(B, F, 6),
+            face_features.reshape(B, F, 3 * D), ctx.row_start,
+            total_height=ctx.total_height, eps=ctx.eps)
+        return (None, grad_img.reshape(B, F, 3, 2),
+                grad_feat.reshape(B, F, 3, D)) + (None,) * 7
 
 
 def rasterize(height, width, face_vertices_z, face_vertices_image,

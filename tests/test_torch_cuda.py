@@ -9,7 +9,10 @@ does not use.)
 
 The kernels repeat the plain versions' operations in their order without
 fused multiply-adds, so face indices, weights and features agree exactly;
-the soft mask to 1e-6 (``expf``).
+the soft mask to 1e-6 (``expf``). The backward kernels sum over pixels in
+another order than the plain versions: each gradient entry agrees to 1e-4
+of itself plus 1e-4 of the median nonzero entry, and two launches give the
+same bits. The soft mask's cut agrees exactly.
 """
 
 import numpy as np
@@ -18,7 +21,12 @@ import torch
 
 import kaolin_tpu_torch as kt
 from kaolin_tpu_torch.kernels import rasterize as kr
+from kaolin_tpu_torch.kernels import rasterize_bwd as krb
 from kaolin_tpu_torch.kernels import soft_mask as ks
+from kaolin_tpu_torch.render.mesh.dibr import _scaled_inputs
+from kaolin_tpu_torch.render.mesh.rasterization import _kernel_inputs
+
+GRAD_TOL = 1e-4
 
 pytestmark = pytest.mark.cuda
 
@@ -45,7 +53,6 @@ def _inputs(device, seed=0, batch=2, faces=300, dim=4):
 def test_rasterize_kernel_matches_plain(cuda, size, dim):
     fvz, fvi, ff = _inputs(cuda, dim=dim)
     valid = torch.rand(fvz.shape[:2], device=cuda) > 0.2
-    from kaolin_tpu_torch.render.mesh.rasterization import _kernel_inputs
     fz, img, bbox = _kernel_inputs(fvz, fvi, valid, 1000.)
     kw = dict(height=size[0], width=size[1], multiplier=1000., eps=1e-8,
               row_start=3, total_height=size[0] + 7)
@@ -65,7 +72,6 @@ def test_rasterize_kernel_matches_plain(cuda, size, dim):
 def test_soft_mask_kernel_matches_plain(cuda, knum):
     fvz, fvi, ff = _inputs(cuda, faces=400)
     _, idx = kt.render.mesh.rasterize(48, 80, fvz, fvi, ff)
-    from kaolin_tpu_torch.render.mesh.dibr import _scaled_inputs
     img, bbox = _scaled_inputs(fvi, 0.05, 1000.)
     kw = dict(height=48, width=80, knum=knum, sigmainv=7000.,
               multiplier=1000.)
@@ -94,3 +100,81 @@ def test_render_on_card_matches_cpu(cuda):
     assert torch.equal(gpu[2].cpu(), cpu[2])
     torch.testing.assert_close(gpu[0].cpu(), cpu[0], rtol=0, atol=1e-6)
     torch.testing.assert_close(gpu[1].cpu(), cpu[1], rtol=0, atol=1e-6)
+
+
+def _grad_close(out, ref):
+    """Every entry within GRAD_TOL of itself plus GRAD_TOL of the median
+    nonzero entry, so a wrong sum for one face fails however large the
+    largest gradient is."""
+    nonzero = ref[ref != 0].abs()
+    assert nonzero.numel() > 0
+    torch.testing.assert_close(out, ref, rtol=GRAD_TOL,
+                               atol=GRAD_TOL * float(nonzero.median()))
+
+
+@pytest.mark.parametrize('size', [(64, 64), (33, 130)])
+@pytest.mark.parametrize('dim', [4, 40])
+def test_rasterize_backward_kernel_matches_plain(cuda, size, dim):
+    fvz, fvi, ff = _inputs(cuda, dim=dim)
+    fz, img, bbox = _kernel_inputs(fvz, fvi, None, 1000.)
+    feats = ff.reshape(2, -1, 3 * dim)
+    slab = dict(row_start=3, total_height=size[0] + 7)
+    _, idx, weights = kr.rasterize_interp(
+        fz, img, bbox, feats, height=size[0], width=size[1],
+        multiplier=1000., eps=1e-8, **slab)
+    grad = torch.randn(2, *size, dim, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(0))
+    args = (grad, idx, weights, fvi.reshape(2, -1, 6), feats)
+    n = krb.rasterize_backward.launches
+    out = krb.rasterize_backward(*args, eps=1e-8, **slab)
+    again = krb.rasterize_backward(*args, eps=1e-8, **slab)
+    assert krb.rasterize_backward.launches == n + 2
+    ref = krb.rasterize_backward_plain(*args, eps=1e-8)
+    for o, a, r in zip(out, again, ref):
+        assert torch.equal(o, a)
+        _grad_close(o, r)
+
+
+@pytest.mark.parametrize('knum', [30, 3])
+def test_soft_mask_backward_kernel_matches_plain(cuda, knum):
+    fvz, fvi, ff = _inputs(cuda, faces=400)
+    _, idx = kt.render.mesh.rasterize(48, 80, fvz, fvi, ff)
+    img, bbox = _scaled_inputs(fvi, 0.05, 1000.)
+    kw = dict(height=48, width=80, knum=knum, sigmainv=7000.,
+              multiplier=1000.)
+    mask, cut = ks.soft_mask_forward(img, bbox, idx, return_cut=True, **kw)
+    mask_p, cut_p = ks.soft_mask_forward_plain(img, bbox, idx,
+                                               return_cut=True, **kw)
+    assert torch.equal(cut, cut_p)
+    torch.testing.assert_close(mask, mask_p, rtol=0, atol=1e-6)
+    grad = torch.randn(2, 48, 80, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(1))
+    n = ks.soft_mask_backward.launches
+    del kw['knum']                 # the cut carries it
+    out = ks.soft_mask_backward(img, bbox, cut, mask, grad, **kw)
+    again = ks.soft_mask_backward(img, bbox, cut, mask, grad, **kw)
+    assert ks.soft_mask_backward.launches == n + 2
+    assert torch.equal(out, again)
+    _grad_close(out, ks.soft_mask_backward_plain(img, bbox, cut, mask, grad,
+                                                 **kw))
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """The gradient of L1 + mask_iou to the vertices, on the card and
+    with the plain versions on the CPU."""
+    scene = kt.utils.interop.scene(2, 2, device=cuda)
+
+    def grad_of(device):
+        verts, faces, rot, trans, proj = (t.to(device) for t in scene)
+        verts = verts.clone().requires_grad_(True)
+        fvc, fvi, fn = kt.render.mesh.prepare_vertices(
+            verts, faces, proj, camera_rot=rot, camera_trans=trans)
+        feat, mask, _ = kt.render.mesh.dibr_rasterization(
+            64, 96, fvc[..., 2], fvi, fvc, fn[..., 2])
+        target = torch.roll(mask.detach(), 5, dims=2)
+        loss = feat.abs().mean() + kt.metrics.render.mask_iou(mask, target)
+        return torch.autograd.grad(loss, [verts])[0]
+
+    gpu, cpu = grad_of(cuda), grad_of('cpu')
+    assert torch.isfinite(gpu).all() and (gpu != 0).any()
+    _grad_close(gpu.cpu(), cpu)

@@ -130,12 +130,52 @@ def test_plain_chunk_does_not_matter(monkeypatch):
     assert ks.soft_mask_forward.launches == before
 
 
-def test_soft_mask_backward_raises():
+@pytest.mark.parametrize('knum', [0, 1, 4, 30])
+def test_plain_cut(monkeypatch, knum):
+    """The cut the forward returns for the backward: per uncovered pixel
+    the id of its knum-th enlarged-bbox hit in face order, or F where it has
+    fewer; -1 on covered pixels and everywhere when knum is 0. Counted
+    here pixel by pixel in numpy, at several face chunkings."""
+    fvi, idx = _soup(np.float32, seed=8, faces=50)
+    img = _t(fvi * np.float32(1000.)).reshape(2, -1, 6)
+    lo, hi = img.reshape(2, -1, 3, 2).amin(2), img.reshape(2, -1, 3, 2).amax(2)
+    bbox = torch.cat([lo - 50., hi + 50.], -1)
+    H, W, F = 16, 128, 50
+    x = (np.float32(1000. / W) * (2 * np.arange(W) + 1 - W)).astype(np.float32)
+    y = (np.float32(1000. / H) * (H - 2 * np.arange(H) - 1)).astype(np.float32)
+    bb = bbox.numpy()[:, :, None, None]
+    hit = ((x >= bb[..., 0]) & (x < bb[..., 2])
+           & (y[:, None] >= bb[..., 1]) & (y[:, None] < bb[..., 3]))
+    want = np.full(idx.shape, F if knum else -1, np.int32)
+    for b, r, c in zip(*np.nonzero(hit.sum(1) >= max(knum, 1))):
+        if knum:
+            want[b, r, c] = np.flatnonzero(hit[b, :, r, c])[knum - 1]
+    want[idx >= 0] = -1
+    if knum:        # 1 and 4 bind on some pixels, 30 on none
+        assert (want == F).any()
+        assert ((want >= 0) & (want < F)).any() == (knum < 30)
+    kw =dict(height=H, width=W, knum=knum, sigmainv=7000., multiplier=1000.)
+    for chunk in (1, 7, 32):
+        monkeypatch.setattr(ks, '_PLAIN_BUDGET', chunk * 2 * H * W)
+        mask, cut = ks.soft_mask_forward(img, bbox, _t(idx), return_cut=True,
+                                         **kw)
+        assert cut.dtype == torch.int32 and np.array_equal(cut.numpy(), want)
+        assert torch.equal(mask, ks.soft_mask_forward(img, bbox, _t(idx),
+                                                      **kw))
+
+
+@pytest.mark.parametrize('covered', [False, True])
+def test_soft_mask_backward_runs(covered):
+    """The backward gives the image verts a finite gradient; where every
+    pixel is covered the mask is 1 and the gradient 0."""
     fvi, idx = _soup(np.float64, seed=7, faces=24)
+    if covered:
+        idx = np.zeros_like(idx)
     fvi_t = _t(fvi).requires_grad_(True)
     mask = kt.render.mesh.dibr_soft_mask(fvi_t, _t(idx))
-    with pytest.raises(NotImplementedError, match='next slice'):
-        mask.sum().backward()
+    grad, = torch.autograd.grad((mask * mask).sum(), [fvi_t])
+    assert grad.shape == fvi_t.shape and torch.isfinite(grad).all()
+    assert bool((grad == 0).all()) == covered
 
 
 @pytest.mark.parametrize('dtype', DTYPES)

@@ -185,9 +185,27 @@ def test_kernel_outputs_on_cpu(route):
         assert torch.isfinite(zbuf[idx_s >= 0]).all()
 
 
-def test_backward_raises():
+@pytest.mark.parametrize('case', ['tensor', 'list', 'zero_cotangent'])
+def test_backward_runs(case):
+    """The backward gives the image verts and the features finite
+    gradients, and ``face_vertices_z`` none; a zero cotangent (a
+    silhouette-only loss) gives zeros, and a list of features (sliced,
+    non-contiguous cotangents) the gradient of each part."""
     fvz, fvi, ff = (torch.tensor(a) for a in _soup(np.float64))
-    fvi.requires_grad_(True)
-    feat, _ = kt.render.mesh.rasterize(16, 24, fvz, fvi, ff)
-    with pytest.raises(NotImplementedError, match='next slice'):
-        feat.sum().backward()
+    for t in (fvz, fvi, ff):
+        t.requires_grad_(True)
+    feats = [ff[..., :1], ff[..., 1:]] if case == 'list' else ff
+    feat, _ = kt.render.mesh.rasterize(16, 24, fvz, fvi, feats)
+    out = feat[1] if case == 'list' else feat
+    scale = 0. if case == 'zero_cotangent' else 1.
+    gz, gv, gf = torch.autograd.grad((out * scale).sum(), [fvz, fvi, ff],
+                                     allow_unused=True)
+    assert gz is None
+    assert gv.shape == fvi.shape and gf.shape == ff.shape
+    assert torch.isfinite(gv).all() and torch.isfinite(gf).all()
+    if case == 'zero_cotangent':
+        assert (gv == 0).all() and (gf == 0).all()
+    else:
+        assert (gv != 0).any() and (gf != 0).any()
+    if case == 'list':
+        assert (gf[..., 0] == 0).all() and (gf[..., 1:] != 0).any()
