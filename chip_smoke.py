@@ -8,28 +8,35 @@ Run from the root of the repository, on a machine with a CUDA card and
 
 It builds the port's CUDA kernels from ``kaolin_tpu_torch/csrc/``, holds
 each kernel against its plain PyTorch version on the card at the shapes of
-the DIB-R forward render and train step, and drives two paths at two sizes,
-checking that every kernel of each ran in it:
+the paths below, and drives three paths, checking that every kernel of each
+ran in it:
 
 - the forward render (``prepare_vertices`` -> ``dibr_rasterization`` ->
-  ``mask_iou``);
+  ``mask_iou``), at two sizes;
 - the train step of ``bench.py`` (the same, then L1 of the features plus
   ``mask_iou``, gradients to the vertices, 20 chained ``v - 1e-7*g``
-  steps), timed as ``dibr_512x512_fwd_bwd_ms_per_frame``.
+  steps), at two sizes, timed as ``dibr_512x512_fwd_bwd_ms_per_frame``;
+- config 2's textured train step (``bench_suite.py:88-129``: 6-DoF
+  ``CameraExtrinsics``, ``rasterize`` of [face UVs, normal z], bilinear
+  ``texture_mapping`` times the clipped normal z, L1 to an all-zero
+  target, gradients to the vertices, the texture and the camera params,
+  20 chained ``x - 1e-6*g`` steps), timed as ``dibr_512_textured_b8_20k``.
 
-It then checks the render and the gradient against the plain versions on
-the CPU on a small input, fits a sphere's silhouette to an ellipsoid's
-with Adam (batch 1, 256x256, silhouette loss only, ``bench_suite.py``'s
-config 1), and times it all with CUDA events and ``torch.profiler``.
+It then checks the render, the gradient and the textured step against the
+plain versions on the CPU on small inputs, fits a sphere's silhouette to an
+ellipsoid's with Adam (batch 1, 256x256, silhouette loss only,
+``bench_suite.py``'s config 1), fits a striped texture and perturbed
+cameras to four views with Adam (``examples/dibr_train.py``'s scene), and
+times it all with CUDA events and ``torch.profiler``.
 
 Sizes: ``bench.py``'s (batch 4, icosphere subdivision 3 = 1,280 faces,
-512x512) and the face count of ``bench_suite.py``'s config 2 (batch 8,
-subdivision 5 = 20,480 faces, 512x512). Each size is rendered with 4
-features per vertex (camera-space xyz and 1) and with 40 (the same plus 36
-seeded random channels), which takes the wide-feature route; the train
-step uses 4. Its silhouette target is the sphere's analytic disc (with
-``bench.py``'s all-zero target the IoU gradient is exactly zero and the
-soft-mask backward would have nothing to do).
+512x512) and ``bench_suite.py``'s config 2 (batch 8, subdivision 5 =
+20,480 faces, 512x512, a 256x256 texture). The silhouette paths render
+with 4 features per vertex (camera-space xyz and 1) and with 40 (the same
+plus 36 seeded random channels), which takes the wide-feature route; the
+train step uses 4. Its silhouette target is the sphere's analytic disc
+(with ``bench.py``'s all-zero target the IoU gradient is exactly zero and
+the soft-mask backward would have nothing to do).
 
 Output: the card line from ``nvidia-smi``, one line per check, a JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``. Any
@@ -45,6 +52,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile, schedule
 
 import kaolin_tpu_torch as kt
@@ -52,9 +60,11 @@ from kaolin_tpu_torch.kernels import _build
 from kaolin_tpu_torch.kernels import rasterize as kr
 from kaolin_tpu_torch.kernels import rasterize_bwd as krb
 from kaolin_tpu_torch.kernels import soft_mask as ks
+from kaolin_tpu_torch.kernels import texture as ktex
 from kaolin_tpu_torch.kernels.rasterize import _pixel_coords
 from kaolin_tpu_torch.render.mesh.dibr import _scaled_inputs
 from kaolin_tpu_torch.render.mesh.rasterization import _kernel_inputs
+from kaolin_tpu_torch.render.mesh.utils import _clip, _uv_coords
 
 SEED = 0
 H = W = 512
@@ -69,6 +79,18 @@ TRAIN_LR = 1e-7                                # bench.py's step
 FIT_SIZE, FIT_STEPS, FIT_LR = 256, 100, 1e-2
 FIT_SCALE = (1.3, 0.75, 1.0)
 FIT_FACTOR, FIT_BELOW = 10., 0.05
+# config 2's textured step (bench_suite.py:88-129): batch, icosphere
+# subdivision, texture size, the chained step's learning rate
+TEX_BATCH, TEX_SUBDIV, TEX_SIZE, TEX_LR = 8, 5, 256, 1e-6
+# the textured fits (examples/dibr_train.py's scene): views, image size,
+# steps, Adam's rates for the texture and the camera params, the largest
+# move of each start eye in azimuth and elevation (degrees); fitting the
+# texture and the cameras, the image loss must fall by TFIT_FACTOR; the
+# cameras alone, the largest eye error by TFIT_EYE_FACTOR (both measured
+# first with the plain versions on the CPU at 128x128: 14.07x and 174.7x)
+TFIT_VIEWS, TFIT_SIZE, TFIT_STEPS = 4, 256, 100
+TFIT_LR_TEX, TFIT_LR_CAM, TFIT_DEG = 2e-2, 2e-3, 4.
+TFIT_FACTOR, TFIT_EYE_FACTOR = 5., 10.
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores
@@ -90,6 +112,11 @@ OPS_RBWD_PIXEL, OPS_RBWD_CHANNEL = 94, 12
 # soft-mask backward, per recorded pair: the forward's distance work, dLdz
 # (6) and the derivative of the nearest edge (44; a vertex takes 6)
 OPS_SOFT_BWD_PAIR = OPS_SOFT_PAIR + 6 + 44
+# bilinear grid sample, per point: two floors, the fractions and their
+# complements, the tap offsets (10); per channel, forward: 8 products and 3
+# sums; backward: the coordinate terms (4 differences, 6 products, 4 sums),
+# the 4 tap weights (8 products) and their 4 adds into the texture
+OPS_GS_POINT, OPS_GS_CHANNEL, OPS_GS_BWD_CHANNEL = 10, 11, 26
 
 # stated tolerances, kernel vs plain version on the card (float32): the
 # kernels repeat the plain version's operations in its order without fused
@@ -106,6 +133,18 @@ TOL_CPU = 1e-5
 # entry (the per-pixel terms are the same, the per-face sums run in other
 # orders); a face whose sum is wrong fails however large the largest is
 GRAD_TOL = 1e-4
+# grid sample, kernel vs plain version on the card: the same operations in
+# the same order without fused multiply-adds, so the samples and the
+# coordinate gradients are expected bit-equal (held to TOL_SAMPLE and to
+# GRAD_TOL entry by entry). The texture gradient adds each texel's terms
+# with float32 atomics in no fixed order (as the plain version's
+# scatter_add_ does), and a texel may take 10^5 terms (the background
+# texel of config 2's step under a random cotangent): it is held against
+# the plain version in float64, every entry within GRAD_TOL * (|ref| +
+# median nonzero |ref|) plus TOL_ATOMIC times the sum of its terms'
+# magnitudes
+TOL_SAMPLE = 1e-6
+TOL_ATOMIC = 1e-6
 
 KERNELS = {
     'rasterize_interp': ('kaolin_tpu_torch/csrc/rasterize.cu',
@@ -118,9 +157,14 @@ KERNELS = {
                            'kaolin_tpu/kernels/rasterize_bwd.py:159'),
     'soft_mask_backward': ('kaolin_tpu_torch/csrc/soft_mask.cu',
                            'kaolin_tpu/kernels/soft_mask.py:468'),
+    'grid_sample': ('kaolin_tpu_torch/csrc/grid_sample.cu',
+                    'kaolin_tpu/kernels/texture.py:98'),
+    'grid_sample_backward': ('kaolin_tpu_torch/csrc/grid_sample.cu',
+                             'kaolin_tpu/kernels/texture.py:176'),
 }
 COUNTERS = (kr.rasterize_interp, kr.rasterize_select, ks.soft_mask_forward,
-            krb.rasterize_backward, ks.soft_mask_backward)
+            krb.rasterize_backward, ks.soft_mask_backward, ktex.grid_sample,
+            ktex.grid_sample_backward)
 
 
 def log(*args):
@@ -253,6 +297,58 @@ class Scene:
         return g_feat, g_mask, idx
 
 
+class TexturedScene:
+    """Config 2's textured train step (``bench_suite.py:88-129``): seeded
+    texture and per-vertex UVs, 6-DoF cameras from ``from_lookat`` on a
+    ring, an all-zero target."""
+
+    def __init__(self, batch, subdiv, tex_size, height, width, device):
+        self.s = kt.utils.interop.textured_scene(batch, subdiv, tex_size,
+                                                 seed=SEED, device=device)
+        self.batch, self.num_faces = batch, self.s['faces'].shape[0]
+        self.target = torch.zeros(batch, height, width, 3, device=device)
+
+    def params(self):
+        """(vertices, texture, 6-DoF camera params), the step's leaves."""
+        return [self.s[k] for k in ('vertices', 'texture', 'cam_params')]
+
+    def loss(self, verts, tex, cam_params):
+        s = self.s
+        return kt.utils.interop.textured_loss(
+            verts, tex, cam_params, s['faces'], s['face_uvs'],
+            s['cam_proj'], self.target)
+
+    def train(self, steps):
+        """``steps`` chained steps ``x - TEX_LR * g`` from the scene's
+        parameters, as a user writes them; returns (parameters, losses,
+        last gradients)."""
+        p, losses = self.params(), []
+        for _ in range(steps):
+            p = [x.detach().requires_grad_(True) for x in p]
+            loss = self.loss(*p)
+            g = torch.autograd.grad(loss, p)
+            p = [x.detach() - TEX_LR * gx for x, gx in zip(p, g)]
+            losses.append(loss.detach())
+        return p, losses, g
+
+    def sampler_inputs(self):
+        """The grid sample's inputs in the step: the texture, the sampler
+        coordinates (B, H*W) of the rendered UV map, and the step's
+        cotangent of the samples (B, H*W, 3)."""
+        s, (_, h, w, _) = self.s, self.target.shape
+        with torch.no_grad():
+            uv_map, nz_map = kt.utils.interop.textured_maps(
+                s['vertices'], s['cam_params'], s['faces'], s['face_uvs'],
+                s['cam_proj'], h, w)
+        tex = s['texture']
+        ix, iy = _uv_coords(uv_map, *tex.shape[2:])
+        out = ktex.grid_sample(tex, ix, iy).requires_grad_(True)
+        img = out.reshape(self.target.shape) * _clip(nz_map, 0., 1.)
+        cot, = torch.autograd.grad(torch.mean(torch.abs(img - self.target)),
+                                   [out])
+        return tex, ix, iy, cot
+
+
 def pixel_hits(bbox, height, width):
     """Per pixel, the number of faces whose bbox [xmin, xmax) x [ymin, ymax)
     holds its centre, from each face's column and row ranges (a 2-D
@@ -320,6 +416,23 @@ def soft_bwd_bound(sm_bbox, cut, grad, knum):
     nbytes = 4 * (B * H * W + int(recorded.sum()) + int(live.sum())
                   + B * F * 16)
     return bound(nbytes, int(hits[live].sum()) * OPS_SOFT_BWD_PAIR)
+
+
+def grid_sample_bound(maps, points, backward):
+    """(bound ms, 'bytes' or 'operations') of one bilinear grid sample of
+    ``maps`` (B, C, H, W) at ``points`` (B, P) points."""
+    B, C = maps.shape[:2]
+    texels, pts = maps.numel(), B * points
+    # forward: the texture and ix, iy in, C samples per point out;
+    # backward: the texture, ix, iy and the cotangent in, dtex, dix and diy
+    # out
+    if backward:
+        nbytes = 4 * (2 * texels + pts * (4 + C))
+        ops = pts * (OPS_GS_POINT + OPS_GS_BWD_CHANNEL * C)
+    else:
+        nbytes = 4 * (texels + pts * (2 + C))
+        ops = pts * (OPS_GS_POINT + OPS_GS_CHANNEL * C)
+    return bound(nbytes, ops)
 
 
 def bound(nbytes, ops):
@@ -534,6 +647,146 @@ def backward_phases(sc):
     return errs, times
 
 
+def grid_sample_checks(label, maps, ix, iy, cots, errs):
+    """Both grid-sample kernels against their plain versions, in both
+    modes, for each (name, cotangent) of ``cots``; the largest errors go
+    into ``errs``."""
+    for mode in ('bilinear', 'nearest'):
+        out = ktex.grid_sample(maps, ix, iy, mode)
+        ref = ktex.grid_sample_plain(maps, ix, iy, mode)
+        torch.cuda.synchronize()
+        e = max_err(out, ref)
+        log(f'[{label}] grid_sample {mode}: max err {e:.3e} (tolerance '
+            f'{TOL_SAMPLE:g}), bit-equal {bool(torch.equal(out, ref))}')
+        expect(e <= TOL_SAMPLE, f'[{label}] grid_sample {mode} disagrees '
+               'with its plain version')
+        errs['grid_sample'] = max(errs['grid_sample'], e)
+        for cot_name, cot in cots:
+            tag = f'[{label}] grid_sample_backward {mode} {cot_name} cotangent'
+            out = ktex.grid_sample_backward(maps, ix, iy, cot, mode)
+            again = ktex.grid_sample_backward(maps, ix, iy, cot, mode)
+            ref = ktex.grid_sample_backward_plain(maps, ix, iy, cot, mode)
+            torch.cuda.synchronize()
+            worst = atomic_close(f'{tag} grad texture', out[0], ref[0],
+                                 maps, ix, iy, cot, mode)
+            log(f'{tag} grad texture: largest difference between two '
+                f'launches {max_err(out[0], again[0]):.3e}')
+            for name, o, a, r in zip(('ix', 'iy'), out[1:], again[1:],
+                                     ref[1:]):
+                if mode == 'nearest':
+                    expect(not o.any() and not r.any(),
+                           f'{tag}: nonzero grad {name}')
+                    log(f'{tag} grad {name}: exactly 0, as the plain '
+                        'version')
+                else:
+                    worst = max(worst, grad_close(f'{tag} grad {name}', o, r))
+                same, exact = bool(torch.equal(o, a)), bool(torch.equal(o, r))
+                log(f'{tag} grad {name}: two launches bit-identical {same}, '
+                    f'bit-equal to the plain version {exact}')
+                expect(same, f'{tag}: two launches differ in grad {name}')
+            errs['grid_sample_backward'] = max(errs['grid_sample_backward'],
+                                               worst)
+
+
+def atomic_close(label, out, plain, maps, ix, iy, cot, mode):
+    """Checks a texture gradient summed with atomics against the plain
+    version in float64, entry by entry: |out - ref| <= GRAD_TOL * (|ref| +
+    median nonzero |ref|) + TOL_ATOMIC * (the sum of the entry's terms'
+    magnitudes). Prints the float32 plain version's ratio under the same
+    rule beside the kernel's; returns the kernel's largest absolute
+    error."""
+    f64 = [t.double() for t in (maps, ix, iy, cot)]
+    ref = ktex.grid_sample_backward_plain(*f64, mode)[0]
+    mass = ktex.grid_sample_backward_plain(*f64[:3], f64[3].abs(), mode)[0]
+    r = ref.abs()
+    nonzero = r[r != 0]
+    med = float(nonzero.median()) if nonzero.numel() else 0.
+    tol = (GRAD_TOL * (r + med) + TOL_ATOMIC * mass).clamp(min=1e-300)
+    d = (out.double() - ref).abs()
+    ratio = float((d / tol).max())
+    plain_ratio = float(((plain.double() - ref).abs() / tol).max())
+    log(f'{label}: max abs err {float(d.max()):.3e} against the float64 '
+        f'plain version, largest |ref| {float(r.max()):.3e}, median nonzero '
+        f'|ref| {med:.3e}, most terms\' magnitude in one entry '
+        f'{float(mass.max()):.3e}; worst entry at {ratio:.3e} of its '
+        f'tolerance {GRAD_TOL:g} * (|ref| + median) + {TOL_ATOMIC:g} * '
+        f'magnitude (the float32 plain version at {plain_ratio:.3e}), '
+        f'finite {bool(torch.isfinite(out).all())}')
+    expect(med > 0. and ratio <= 1. and bool(torch.isfinite(out).all()),
+           f'{label}: out of tolerance')
+    return float(d.max())
+
+
+def texture_phases(tsc):
+    """Both grid-sample kernels against their plain versions on the card:
+    at config 2's step (its 256x256 texture at the rendered UV map, with
+    the step's cotangent and a random one), and at random coordinates over
+    that texture and over a random 64x64 one (inside the JAX kernel's
+    128x128 domain). Then both timed at the step's inputs, beside
+    ``F.grid_sample``. Returns ({kernel: max abs error}, {kernel: times})."""
+    tex, ix, iy, cot = tsc.sampler_inputs()
+    B, C, th, tw = tex.shape
+    P = ix.shape[1]
+    gen = torch.Generator('cuda').manual_seed(SEED)
+
+    def rand_coords(h, w):
+        return (torch.rand(B, P, device='cuda', generator=gen) * (w - 1),
+                torch.rand(B, P, device='cuda', generator=gen) * (h - 1))
+
+    rand_cot = torch.randn(cot.shape, device='cuda', generator=gen)
+    small = torch.rand(B, C, 64, 64, device='cuda', generator=gen)
+    uncovered = float((cot == 0).all(-1).float().mean())
+    log(f'[textured] {B}x{P} sample points, {uncovered:.4f} of them with a '
+        'zero cotangent in the step')
+    errs = dict.fromkeys(('grid_sample', 'grid_sample_backward'), 0.)
+    grid_sample_checks('config2 UV map', tex, ix, iy,
+                       (('train', cot), ('random', rand_cot)), errs)
+    grid_sample_checks(f'{th}x{tw} random coords', tex,
+                       *rand_coords(th, tw), (('random', rand_cot),), errs)
+    grid_sample_checks('64x64 random coords', small, *rand_coords(64, 64),
+                       (('random', rand_cot),), errs)
+
+    # the library's yardstick: the same points as a normalised grid
+    grid = torch.stack([(2. * ix + 1.) / tw - 1., (2. * iy + 1.) / th - 1.],
+                       -1)[:, None]
+    cot_lib = cot.transpose(1, 2).reshape(B, C, 1, P).contiguous()
+
+    def lib_fwd():
+        return F.grid_sample(tex, grid, 'bilinear', 'border',
+                             align_corners=False)
+
+    def lib_bwd():
+        return torch.ops.aten.grid_sampler_2d_backward(
+            cot_lib, tex, grid, 0, 1, False, [True, True])
+
+    e_lib = max_err(lib_fwd()[:, :, 0].transpose(1, 2),
+                    ktex.grid_sample(tex, ix, iy))
+    log(f'[textured] F.grid_sample vs the kernel at the step: max diff '
+        f'{e_lib:.3e}')
+    shape = (f'texture {B}x{C}x{th}x{tw} at {B}x{P} points (config 2 '
+             f'step, {tsc.num_faces} faces, {H}x{W})')
+    times = {}
+    for name, fn, plain, lib, backward in (
+            ('grid_sample', lambda: ktex.grid_sample(tex, ix, iy),
+             lambda: ktex.grid_sample_plain(tex, ix, iy), lib_fwd, False),
+            ('grid_sample_backward',
+             lambda: ktex.grid_sample_backward(tex, ix, iy, cot),
+             lambda: ktex.grid_sample_backward_plain(tex, ix, iy, cot),
+             lib_bwd, True)):
+        bnd = grid_sample_bound(tex, P, backward)
+        times[name] = dict(ms=time_ms(fn, TIME_ITERS),
+                           plain_ms=time_ms(plain, 3),
+                           library_ms=time_ms(lib, TIME_ITERS),
+                           bound_ms=bnd[0], bound_by=bnd[1], shape=shape)
+        log(f'[textured] time {name} (the step\'s cotangent): '
+            + json.dumps(times[name]))
+    rand_ms = time_ms(lambda: ktex.grid_sample_backward(tex, ix, iy,
+                                                        rand_cot), TIME_ITERS)
+    log(f'[textured] time grid_sample_backward with a random cotangent, '
+        f'nonzero on the background too: {rand_ms:.4f} ms')
+    return errs, times
+
+
 def reset_counters():
     for c in COUNTERS:
         c.launches = 0
@@ -604,6 +857,34 @@ def train_path(scenes):
     return launches
 
 
+def textured_path(tsc):
+    """Config 2's textured train step, as a user writes it, TRAIN_STEPS
+    chained steps; returns the launches of each kernel in it."""
+    reset_counters()
+    p, losses, g = tsc.train(TRAIN_STEPS)
+    launches = read_counters('textured path')
+    for name in ('rasterize_interp', 'rasterize_backward', 'grid_sample',
+                 'grid_sample_backward'):
+        expect(launches[name] > 0,
+               f'{name} was not launched on the textured path')
+    for name in ('soft_mask_forward', 'soft_mask_backward'):
+        expect(launches[name] == 0, f'{name} ran on the textured path')
+    log(f'[textured] train: loss {float(losses[0]):.6f} -> '
+        f'{float(losses[-1]):.6f} over {TRAIN_STEPS} steps')
+    expect(all(bool(torch.isfinite(x)) for x in losses),
+           'textured step: non-finite loss')
+    for name, gx, x0, x in zip(('vertices', 'texture', '6-DoF params'), g,
+                               tsc.params(), p):
+        gmax = float(gx.abs().max())
+        log(f'[textured] grad {name}: largest |grad| {gmax:.4e}, nonzero '
+            f'share {float((gx != 0).float().mean()):.4f}, moved by up to '
+            f'{float((x - x0).abs().max()):.3e}')
+        expect(bool(torch.isfinite(gx).all() and torch.isfinite(x).all())
+               and gmax > 0., f'textured step: non-finite or zero gradient '
+               f'to the {name}')
+    return launches
+
+
 def profile_calls(label, fn, per_call_ms, iters=10):
     """Device time of ``fn`` by kernel (``torch.profiler``), and the share
     of the call's time the card is idle."""
@@ -631,7 +912,7 @@ def profile_calls(label, fn, per_call_ms, iters=10):
     log(f'{label}: device busy {busy_ms:.4f} ms of {per_call_ms:.4f} ms per '
         f'call, idle share {1. - busy_ms / per_call_ms:.3f}, '
         f'{len(kernels)} kernels')
-    for e in kernels[:8]:
+    for e in kernels[:12]:
         log(f'    {e.self_device_time_total / 1e3 / iters:.4f} ms in '
             f'{e.count / iters:g} launches: {e.key[:70]}')
 
@@ -675,6 +956,103 @@ def check_against_cpu():
                'mask_iou', grad_of('cuda').cpu(), grad_of('cpu'))
 
 
+def check_textured_against_cpu():
+    """Config 2's loss at a small size (batch 2, 320 faces, 24x40, a 16x16
+    texture) on the card against the plain versions on the CPU: the loss,
+    then its gradients to the vertices, the texture and the 6-DoF params
+    entry by entry."""
+    s = kt.utils.interop.textured_scene(2, 2, 16, seed=SEED, device='cuda')
+
+    def grads(device):
+        p = [s[k].to(device).detach().requires_grad_(True)
+             for k in ('vertices', 'texture', 'cam_params')]
+        loss = kt.utils.interop.textured_loss(
+            *p, s['faces'].to(device), s['face_uvs'].to(device),
+            s['cam_proj'].to(device), torch.zeros(2, 24, 40, 3,
+                                                  device=device))
+        return loss, torch.autograd.grad(loss, p)
+
+    (lg, gpu), (lc, cpu) = grads('cuda'), grads('cpu')
+    lg, lc = lg.item(), lc.item()
+    rel = abs(lg - lc) / abs(lc)
+    log(f'card vs CPU plain, textured loss at 2x24x40: {lg:.8f} vs {lc:.8f}, '
+        f'relative difference {rel:.3e} (tolerance 1e-5)')
+    expect(rel <= 1e-5, 'the textured loss on the card disagrees with the '
+           'CPU')
+    for name, g, c in zip(('vertices', 'texture', '6-DoF params'), gpu, cpu):
+        grad_close(f'card vs CPU plain, textured gradient to the {name}',
+                   g.cpu(), c)
+
+
+def texture_fit(fit_texture, device='cuda', size=TFIT_SIZE, steps=TFIT_STEPS):
+    """Canonical drive 1 with a texture, on ``examples/dibr_train.py``'s
+    scene: an icosphere (subdivision 2) with spherical UVs seen by
+    TFIT_VIEWS cameras on a ring (radius 3, 0.4 up), a striped 64x64 target
+    texture. The start cameras are 6-DoF, their eyes moved by up to
+    TFIT_DEG degrees in azimuth and elevation. Adam fits the camera params,
+    and with ``fit_texture`` a texture that starts flat at 0.5 (else the
+    target texture stays), to the target images (image L1 of
+    ``textured_render``). Returns (losses, largest eye error before, and
+    after)."""
+    verts_np, faces_np = kt.utils.interop.icosphere(2)
+    theta = np.arctan2(verts_np[:, 0], verts_np[:, 2])
+    phi = np.arcsin(np.clip(verts_np[:, 1], -1., 1.))
+    uvs = np.stack([theta / (2 * np.pi) + 0.5, phi / np.pi + 0.5], -1)
+    stripes = np.ones((1, 3, 64, 64), np.float32)
+    stripes[:, 0, ::8] = 0.1
+    true_tex, uvs = kt.utils.interop.texture_from_numpy(
+        stripes, uvs[None].astype(np.float32), device=device)
+    faces = torch.as_tensor(faces_np, dtype=torch.int64, device=device)
+    face_uvs = kt.ops.mesh.index_vertices_by_faces(uvs, faces)
+    verts = torch.as_tensor(verts_np, device=device)
+    proj = kt.render.camera.generate_perspective_projection(math.pi / 4.,
+                                                            device=device)
+    n = TFIT_VIEWS
+
+    def cameras(azim, elev):
+        a = np.linspace(0., 2 * np.pi, n, endpoint=False) + np.radians(azim)
+        e = np.arctan2(0.4, 3.) + np.radians(elev)
+        r = math.hypot(3., 0.4)
+        eye = np.stack([r * np.cos(e) * np.sin(a), r * np.sin(e) * np.ones(n),
+                        r * np.cos(e) * np.cos(a)], -1)
+        return kt.render.camera.CameraExtrinsics.from_lookat(
+            eye, np.zeros((n, 3)), np.tile([[0., 1., 0.]], (n, 1)),
+            dtype=torch.float32, backend='matrix_6dof_rotation',
+            device=device)
+
+    def render(tex, cam_params):
+        return kt.utils.interop.textured_render(
+            verts, tex.expand(n, -1, -1, -1), cam_params, faces, face_uvs,
+            proj, size, size)
+
+    true_cams = cameras(0., 0.)
+    rng = np.random.default_rng(SEED)
+    start = cameras(*rng.uniform(-TFIT_DEG, TFIT_DEG, (2, n)))
+
+    def eye_err(cam_params):
+        cams = kt.render.camera.CameraExtrinsics(
+            cam_params.detach(), backend='matrix_6dof_rotation')
+        return float((cams.cam_pos() - true_cams.cam_pos()).norm(dim=1).max())
+
+    with torch.no_grad():
+        target = render(true_tex, true_cams.parameters())
+    cam_params = start.parameters().clone().requires_grad_(True)
+    groups = [{'params': [cam_params], 'lr': TFIT_LR_CAM}]
+    tex = true_tex
+    if fit_texture:
+        tex = torch.full_like(true_tex, 0.5).requires_grad_(True)
+        groups.append({'params': [tex], 'lr': TFIT_LR_TEX})
+    opt = torch.optim.Adam(groups)
+    losses = []
+    for _ in range(steps):
+        loss = torch.mean(torch.abs(render(tex, cam_params) - target))
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    return losses, eye_err(start.parameters()), eye_err(cam_params)
+
+
 def fit():
     """Config 1's drive: fit the unit sphere's silhouette to an
     ellipsoid's with Adam, batch 1, 256x256, silhouette loss only; the
@@ -712,6 +1090,31 @@ def fit():
            and losses[-1] < FIT_BELOW, 'the fit did not converge')
 
 
+def check_texture_fits():
+    """The textured fit twice: texture and cameras from a flat texture (the
+    image loss must fall by TFIT_FACTOR), then the cameras alone under the
+    target texture (the largest eye error must fall by TFIT_EYE_FACTOR)."""
+    for fit_texture in (True, False):
+        label = 'texture and cameras' if fit_texture else 'cameras alone'
+        t0 = time.perf_counter()
+        losses, err0, err1 = texture_fit(fit_texture)
+        secs = time.perf_counter() - t0
+        n = len(losses)
+        log(f'textured fit, {label}: image L1 {losses[0]:.6f} -> '
+            f'{losses[-1]:.6f} in {n} Adam steps '
+            f'({losses[0] / losses[-1]:.2f}x), {secs:.2f} s; after {n // 10}, '
+            f'{n // 4}, {n // 2} steps: {losses[n // 10 - 1]:.6f} '
+            f'{losses[n // 4 - 1]:.6f} {losses[n // 2 - 1]:.6f}; largest eye '
+            f'error {err0:.4f} -> {err1:.4f} ({err0 / err1:.1f}x)')
+        expect(all(math.isfinite(x) for x in losses), 'non-finite fit loss')
+        if fit_texture:
+            expect(losses[-1] * TFIT_FACTOR <= losses[0], 'the textured fit '
+                   f'did not cut the loss by {TFIT_FACTOR:g}x')
+        else:
+            expect(err1 * TFIT_EYE_FACTOR <= err0, 'the camera fit did not '
+                   f'cut the eye error by {TFIT_EYE_FACTOR:g}x')
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device visible', file=sys.stderr)
@@ -728,6 +1131,7 @@ def main():
         'sources')
 
     scenes = [Scene(name, b, s, 'cuda') for name, b, s in SIZES]
+    tsc = TexturedScene(TEX_BATCH, TEX_SUBDIV, TEX_SIZE, H, W, 'cuda')
     errs = {name: 0.0 for name in KERNELS}
     times = {}
     for sc in scenes:
@@ -736,6 +1140,8 @@ def main():
         times[sc.name].update(bwd_times)
         for name, err in {**sc_errs, **bwd_errs}.items():
             errs[name] = max(errs[name], err)
+    tex_errs, tex_times = texture_phases(tsc)
+    errs.update(tex_errs)
 
     launches, _ = main_path(scenes)
     for sc in scenes:
@@ -759,24 +1165,41 @@ def main():
             f'{sc.num_faces} faces, {H}x{W}, {TRAIN_STEPS} chained steps)')
         profile_calls(f'[{sc.name}] profile train step',
                       lambda: sc.train(1), ms)
+
+    tex_launches = textured_path(tsc)
+    for name in ('grid_sample', 'grid_sample_backward'):
+        launches[name] = tex_launches[name]
+    ms = time_ms(lambda: tsc.train(TRAIN_STEPS), 1) / TRAIN_STEPS
+    tex_per_frame = ms / tsc.batch
+    log(f'[textured] train step: {ms:.4f} ms per step, {tex_per_frame:.4f} '
+        f'ms/frame (batch {tsc.batch}, {tsc.num_faces} faces, {H}x{W}, '
+        f'{TEX_SIZE}x{TEX_SIZE} texture, {TRAIN_STEPS} chained steps)')
+    profile_calls('[textured] profile train step', lambda: tsc.train(1), ms)
+
     check_against_cpu()
+    check_textured_against_cpu()
     fit()
+    check_texture_fits()
 
     main = scenes[0]
     rows = []
     for name, (source, replaces) in KERNELS.items():
-        t = times[main.name][name]
+        t = tex_times.get(name) or dict(
+            times[main.name][name], library_ms=None,
+            shape=f'batch {main.batch}, {main.num_faces} faces, {H}x{W}')
         rows.append(dict(name=name, route='cuda', source=source,
                          replaces=replaces, launches=launches[name],
                          max_abs_err=errs[name], ms=t['ms'],
                          plain_ms=t['plain_ms'], bound_ms=t['bound_ms'],
-                         bound_by=t['bound_by'], library_ms=None,
-                         shape=f'batch {main.batch}, {main.num_faces} '
-                               f'faces, {H}x{W}'))
+                         bound_by=t['bound_by'], library_ms=t['library_ms'],
+                         shape=t['shape']))
     log(f'total {time.perf_counter() - t0:.1f} s')
     log(json.dumps({'metric': 'dibr_512x512_fwd_bwd_ms_per_frame',
                     'value': per_frame[main.name], 'unit': 'ms/frame',
                     'config2_value': per_frame[scenes[1].name]}))
+    log(card)
+    log(json.dumps({'metric': 'dibr_512_textured_b8_20k',
+                    'value': tex_per_frame, 'unit': 'ms/frame'}))
     log(card)
     log(json.dumps({'kernels': rows}))
     log(json.dumps({'ok': True, 'device': {

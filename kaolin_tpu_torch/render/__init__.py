@@ -1,2 +1,3 @@
 from . import camera
+from . import lighting
 from . import mesh

@@ -36,8 +36,9 @@ def _kernel_inputs(face_vertices_z, face_vertices_image, valid_faces,
     bboxes = torch.cat([img_scaled.amin(dim=2), img_scaled.amax(dim=2)],
                        dim=-1)
     if valid_faces is not None:
-        empty = bboxes.new_tensor([torch.inf, torch.inf, -torch.inf,
-                                   -torch.inf])
+        # filled on the device: no copy from the host, which would wait
+        empty = bboxes.new_full((4,), torch.inf)
+        empty[2:] = -torch.inf
         valid = valid_faces.to(bboxes.dtype)[..., None] > 0
         bboxes = torch.where(valid, bboxes, empty)
     return face_vertices_z.contiguous(), img_scaled.reshape(B, F, 6), bboxes

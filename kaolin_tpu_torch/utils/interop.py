@@ -1,10 +1,14 @@
-"""Numpy interop and the DIB-R demo scene.
+"""Numpy interop and the DIB-R demo scenes.
 
 ``icosphere`` is a numpy copy of the icosphere builder that the repo's
 ``__graft_entry__._icosphere`` holds, so the port builds the same meshes
-without importing the JAX side. ``dibr_params_from_numpy`` turns the DIB-R
-parameters, as numpy arrays, into the port's tensors; the parity tests feed
-both packages through it.
+without importing the JAX side. ``dibr_params_from_numpy``,
+``extrinsics_from_numpy``, ``intrinsics_from_numpy`` and
+``texture_from_numpy`` turn parameters, as numpy arrays, into the port's
+tensors and cameras; the parity tests feed both packages through them.
+``scene`` is the DIB-R silhouette scene; ``textured_scene``,
+``textured_maps``, ``textured_render`` and ``textured_loss`` are the
+textured train step of ``bench_suite.py``'s config 2.
 """
 
 import math
@@ -12,9 +16,14 @@ import math
 import numpy as np
 import torch
 
-from ..render import camera
+from .. import ops
+from ..render import camera, mesh
+from ..render.mesh.utils import _clip
 
-__all__ = ['icosphere', 'dibr_params_from_numpy', 'scene']
+__all__ = ['icosphere', 'dibr_params_from_numpy', 'extrinsics_from_numpy',
+           'intrinsics_from_numpy', 'texture_from_numpy', 'scene',
+           'textured_scene', 'textured_maps', 'textured_render',
+           'textured_loss']
 
 
 def icosphere(subdiv=2):
@@ -64,6 +73,32 @@ def dibr_params_from_numpy(vertices, faces, cam_rot, cam_trans, cam_proj,
             to(cam_trans), to(cam_proj))
 
 
+def extrinsics_from_numpy(params, backend, device='cuda'):
+    """A ``CameraExtrinsics`` from its params (C, P) as a numpy array (dtype
+    kept) and its backend name, on ``device``."""
+    return camera.CameraExtrinsics(
+        torch.tensor(np.asarray(params), device=device), backend=backend)
+
+
+def intrinsics_from_numpy(params, width, height, lens_type='pinhole',
+                          near=1e-2, far=1e2, ndc_min=-1., ndc_max=1.,
+                          device='cuda'):
+    """Camera intrinsics from their params (C, P) as a numpy array (dtype
+    kept) and their settings, on ``device``. ``lens_type`` is 'pinhole'
+    or 'ortho', as the classes' ``lens_type``."""
+    cls = {'pinhole': camera.PinholeIntrinsics,
+           'ortho': camera.OrthographicIntrinsics}[lens_type]
+    return cls(width, height, torch.tensor(np.asarray(params), device=device),
+               near=near, far=far, ndc_min=ndc_min, ndc_max=ndc_max)
+
+
+def texture_from_numpy(texture, uvs, device='cuda'):
+    """(texture (B, C, H, W), UVs) from numpy arrays to tensors on
+    ``device``, dtypes kept."""
+    return (torch.tensor(np.asarray(texture), device=device),
+            torch.tensor(np.asarray(uvs), device=device))
+
+
 def scene(batch_size, subdiv, dtype=torch.float32, device='cuda'):
     """The DIB-R demo scene: ``batch_size`` copies of an icosphere seen by
     cameras on a ring of radius 3, 0.5 above the equator, 45-degree fovy.
@@ -87,3 +122,76 @@ def scene(batch_size, subdiv, dtype=torch.float32, device='cuda'):
     verts = verts[None].repeat(batch_size, 1, 1)
     faces = torch.as_tensor(faces_np, dtype=torch.int64, device=device)
     return verts, faces, cam_rot, cam_trans, cam_proj
+
+
+def textured_scene(batch_size, subdiv, tex_size, seed=0, dtype=torch.float32,
+                   device='cuda'):
+    """``bench_suite.py``'s config-2 scene: ``batch_size`` copies of an
+    icosphere seen by cameras on a ring of radius 3, 0.5 above the equator
+    (6-DoF extrinsics from ``from_lookat``, 45-degree fovy), a seeded
+    random (B, 3, tex_size, tex_size) texture and seeded random per-vertex
+    UVs in [0, 1], drawn in that order from ``default_rng(seed)``.
+
+    Returns a dict: vertices (B,V,3), faces (F,3) int64, cam_params (B,9),
+    cam_proj (3,1), texture, face_uvs (B,F,3,2), on ``device``.
+    """
+    verts_np, faces_np = icosphere(subdiv)
+    angles = np.linspace(0., 2 * np.pi, batch_size, endpoint=False)
+    eye = np.stack([3 * np.sin(angles), 0.5 * np.ones_like(angles),
+                    3 * np.cos(angles)], -1)
+    ext = camera.CameraExtrinsics.from_lookat(
+        eye, np.zeros((batch_size, 3)),
+        np.tile(np.array([[0., 1., 0.]]), (batch_size, 1)), dtype=dtype,
+        backend='matrix_6dof_rotation', device=device)
+    rng = np.random.default_rng(seed)
+    texture, uvs = texture_from_numpy(
+        rng.random((batch_size, 3, tex_size, tex_size)),
+        rng.random((batch_size, verts_np.shape[0], 2)), device=device)
+    faces = torch.as_tensor(faces_np, dtype=torch.int64, device=device)
+    verts = torch.as_tensor(verts_np, dtype=dtype, device=device)
+    return dict(
+        vertices=verts[None].repeat(batch_size, 1, 1), faces=faces,
+        cam_params=ext.parameters(),
+        cam_proj=camera.generate_perspective_projection(
+            math.pi / 4., dtype=dtype, device=device),
+        texture=texture.to(dtype),
+        face_uvs=ops.mesh.index_vertices_by_faces(uvs.to(dtype), faces))
+
+
+def textured_maps(vertices, cam_params, faces, face_uvs, cam_proj, height,
+                  width):
+    """Config 2's rasterized maps: 6-DoF extrinsics, perspective
+    projection, ``rasterize`` of [face UVs, normal z] with normal-z
+    culling. ``vertices`` (B, V, 3) or (V, 3) for one mesh seen by every
+    camera; ``face_uvs`` (B, F, 3, 2) or (1, F, 3, 2). Returns (UV map
+    (B, height, width, 2), normal-z map (B, height, width, 1))."""
+    ext = camera.CameraExtrinsics(cam_params, backend='matrix_6dof_rotation')
+    vc = ext.transform(vertices)
+    vi = camera.perspective_camera(vc, cam_proj)
+    fvc = ops.mesh.index_vertices_by_faces(vc, faces)
+    fvi = ops.mesh.index_vertices_by_faces(vi, faces)
+    fn = ops.mesh.face_normals(fvc, unit=True)
+    ff = [face_uvs.expand(fvc.shape[:2] + face_uvs.shape[2:]),
+          fn[:, :, None, 2:].expand(fvc.shape[:3] + (1,))]
+    maps, _ = mesh.rasterize(height, width, fvc[..., 2], fvi, ff,
+                             fn[..., 2] >= 0)
+    return maps
+
+
+def textured_render(vertices, texture, cam_params, faces, face_uvs, cam_proj,
+                    height, width):
+    """Config 2's image (B, height, width, 3): :func:`textured_maps`, then
+    bilinear ``texture_mapping`` times ``clip(normal z, 0, 1)``."""
+    uv_map, nz_map = textured_maps(vertices, cam_params, faces, face_uvs,
+                                   cam_proj, height, width)
+    img = mesh.texture_mapping(uv_map, texture, mode='bilinear')
+    return img * _clip(nz_map, 0., 1.)
+
+
+def textured_loss(vertices, texture, cam_params, faces, face_uvs, cam_proj,
+                  target):
+    """Config 2's loss: L1 of :func:`textured_render` to ``target``
+    (B, H, W, 3)."""
+    img = textured_render(vertices, texture, cam_params, faces, face_uvs,
+                          cam_proj, *target.shape[1:3])
+    return torch.mean(torch.abs(img - target))

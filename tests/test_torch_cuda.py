@@ -12,7 +12,10 @@ fused multiply-adds, so face indices, weights and features agree exactly;
 the soft mask to 1e-6 (``expf``). The backward kernels sum over pixels in
 another order than the plain versions: each gradient entry agrees to 1e-4
 of itself plus 1e-4 of the median nonzero entry, and two launches give the
-same bits. The soft mask's cut agrees exactly.
+same bits. The soft mask's cut agrees exactly. The grid-sample kernels
+repeat the plain versions' operations too: the samples and the coordinate
+gradients agree exactly; the texture gradient sums with atomics in no fixed
+order and agrees entry by entry as the other gradients do.
 """
 
 import numpy as np
@@ -23,6 +26,7 @@ import kaolin_tpu_torch as kt
 from kaolin_tpu_torch.kernels import rasterize as kr
 from kaolin_tpu_torch.kernels import rasterize_bwd as krb
 from kaolin_tpu_torch.kernels import soft_mask as ks
+from kaolin_tpu_torch.kernels import texture as ktex
 from kaolin_tpu_torch.render.mesh.dibr import _scaled_inputs
 from kaolin_tpu_torch.render.mesh.rasterization import _kernel_inputs
 
@@ -178,3 +182,76 @@ def test_train_step_on_card_matches_cpu(cuda):
     gpu, cpu = grad_of(cuda), grad_of('cpu')
     assert torch.isfinite(gpu).all() and (gpu != 0).any()
     _grad_close(gpu.cpu(), cpu)
+
+
+def _sampler_coords(device, B, P, H, W, seed):
+    """Sampler coordinates over the whole texture, a tenth of them on the
+    clip bounds and on texel centres."""
+    g = torch.Generator(device).manual_seed(seed)
+    ix = torch.rand(B, P, device=device, generator=g) * (W - 1)
+    iy = torch.rand(B, P, device=device, generator=g) * (H - 1)
+    k = P // 40
+    ix[:, :k], iy[:, k:2 * k] = 0., float(H - 1)
+    ix[:, 2 * k:3 * k] = float(W - 1)
+    ix[:, 3 * k:4 * k] = torch.floor(ix[:, 3 * k:4 * k])
+    return ix, iy
+
+
+@pytest.mark.parametrize('shape', [(3, 64, 64), (3, 256, 256), (2, 9, 200)])
+@pytest.mark.parametrize('mode', ['bilinear', 'nearest'])
+def test_grid_sample_kernels_match_plain(cuda, shape, mode):
+    C, H, W = shape
+    B, P = 2, 5000
+    maps = torch.rand(B, C, H, W, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(2))
+    ix, iy = _sampler_coords(cuda, B, P, H, W, 3)
+    cot = torch.randn(B, P, C, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(4))
+    n, nb = ktex.grid_sample.launches, ktex.grid_sample_backward.launches
+    out = ktex.grid_sample(maps, ix, iy, mode)
+    assert torch.equal(out, ktex.grid_sample_plain(maps, ix, iy, mode))
+    dmaps, dix, diy = ktex.grid_sample_backward(maps, ix, iy, cot, mode)
+    again = ktex.grid_sample_backward(maps, ix, iy, cot, mode)
+    assert ktex.grid_sample.launches == n + 1
+    assert ktex.grid_sample_backward.launches == nb + 2
+    rmaps, rix, riy = ktex.grid_sample_backward_plain(maps, ix, iy, cot,
+                                                      mode)
+    assert torch.equal(dix, again[1]) and torch.equal(diy, again[2])
+    assert torch.equal(dix, rix) and torch.equal(diy, riy)
+    if mode == 'nearest':
+        assert not dix.any() and not diy.any()
+    _grad_close(dmaps, rmaps)
+    _grad_close(again[0], rmaps)
+
+
+def test_grid_sample_rejects_bad_input(cuda):
+    maps = torch.rand(1, 3, 8, 8, device=cuda)
+    ix = torch.zeros(1, 4, device=cuda)
+    with pytest.raises(TypeError, match='float32'):
+        ktex.grid_sample(maps.double(), ix.double(), ix.double())
+    with pytest.raises(ValueError, match='coordinates on cpu'):
+        ktex.grid_sample(maps, ix.cpu(), ix.cpu())
+
+
+def test_textured_step_on_card_matches_cpu(cuda):
+    """Config 2's loss at a small size (B=2, 320 faces, 24x40, 16^2
+    texture): its gradients to the vertices, the texture and the 6-DoF
+    params on the card and with the plain versions on the CPU."""
+    scene = kt.utils.interop.textured_scene(2, 2, 16, device=cuda)
+
+    def grads(device):
+        s = {k: v.to(device) for k, v in scene.items()}
+        params = [s[k].clone().requires_grad_(True)
+                  for k in ('vertices', 'texture', 'cam_params')]
+        loss = kt.utils.interop.textured_loss(
+            *params, s['faces'], s['face_uvs'], s['cam_proj'],
+            torch.zeros(2, 24, 40, 3, device=device))
+        return loss, torch.autograd.grad(loss, params)
+
+    n = ktex.grid_sample_backward.launches
+    (lg, gpu), (lc, cpu) = grads(cuda), grads('cpu')
+    assert ktex.grid_sample_backward.launches == n + 1
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-5, atol=0)
+    for g, c in zip(gpu, cpu):
+        assert torch.isfinite(g).all() and (g != 0).any()
+        _grad_close(g.cpu(), c)

@@ -223,3 +223,37 @@ def test_port_sources_import_no_jax():
             top = mod.split('.')[0]
             assert top not in ('jax', 'jaxlib', 'kaolin_tpu',
                                '__graft_entry__'), (path, mod)
+
+
+def _c_entry_points():
+    """{name: [ctypes type per parameter]} of the ``extern "C"`` functions
+    in ``kaolin_tpu_torch/csrc/*.cu``."""
+    import ctypes
+    import re
+    kinds = {'p': ctypes.c_void_p, 'float': ctypes.c_float,
+             'int': ctypes.c_int}
+    out = {}
+    for src in (ROOT / 'kaolin_tpu_torch' / 'csrc').glob('*.cu'):
+        text = src.read_text()
+        text = text[text.index('extern "C" {'):]
+        for name, params in re.findall(r'\nint (\w+)\(([^)]*)\)\s*\{', text):
+            types = []
+            for param in params.split(','):
+                kind = 'p' if '*' in param else param.split()[0]
+                types.append(kinds[kind])
+            out[name] = types
+    return out
+
+
+def test_ctypes_signatures_match_sources():
+    """Each wrapper's ctypes argument types are those of its C entry
+    point, so a launch passes every pointer whole and in its place."""
+    from kaolin_tpu_torch.kernels import (rasterize, rasterize_bwd,
+                                          soft_mask, texture)
+    entry = _c_entry_points()
+    seen = 0
+    for mod in (rasterize, rasterize_bwd, soft_mask, texture):
+        for name, argtypes in mod._SIGNATURES.items():
+            assert entry[name] == argtypes, name
+            seen += 1
+    assert seen == len(entry) == 7
