@@ -8,7 +8,7 @@ Run from the root of the repository, on a machine with a CUDA card and
 
 It builds the port's CUDA kernels from ``kaolin_tpu_torch/csrc/``, holds
 each kernel against its plain PyTorch version on the card at the shapes of
-the paths below, and drives three paths, checking that every kernel of each
+the paths below, and drives five paths, checking that every kernel of each
 ran in it:
 
 - the forward render (``prepare_vertices`` -> ``dibr_rasterization`` ->
@@ -20,14 +20,23 @@ ran in it:
   ``CameraExtrinsics``, ``rasterize`` of [face UVs, normal z], bilinear
   ``texture_mapping`` times the clipped normal z, L1 to an all-zero
   target, gradients to the vertices, the texture and the camera params,
-  20 chained ``x - 1e-6*g`` steps), timed as ``dibr_512_textured_b8_20k``.
+  20 chained ``x - 1e-6*g`` steps), timed as ``dibr_512_textured_b8_20k``;
+- config 3's metrics step (``bench_suite.py:184-202``: ``chamfer_distance``
+  between two clouds of 100,000 points and ``point_to_mesh_distance`` from
+  100,000 points to 10,000 faces, 20 chained iterations), timed as
+  ``chamfer100k_p2m10k``;
+- config 3's mesh fit: Adam on a unit icosphere (5,120 faces) toward
+  100,000 points on an ellipsoid, through ``sample_points``, Chamfer,
+  point-to-mesh and Laplacian terms, then an F-score on 10,000 points.
 
-It then checks the render, the gradient and the textured step against the
-plain versions on the CPU on small inputs, fits a sphere's silhouette to an
-ellipsoid's with Adam (batch 1, 256x256, silhouette loss only,
-``bench_suite.py``'s config 1), fits a striped texture and perturbed
-cameras to four views with Adam (``examples/dibr_train.py``'s scene), and
-times it all with CUDA events and ``torch.profiler``.
+It then checks the render, the gradient, the textured step and config 3's
+fit loss against the plain versions on the CPU on small inputs, fits a
+sphere's silhouette to an ellipsoid's with Adam (batch 1, 256x256,
+silhouette loss only, ``bench_suite.py``'s config 1), fits a striped
+texture and perturbed cameras to four views with Adam
+(``examples/dibr_train.py``'s scene), checks ``check_sign`` and
+``sdf_to_voxelgrids`` on the card, and times it all with CUDA events and
+``torch.profiler``.
 
 Sizes: ``bench.py``'s (batch 4, icosphere subdivision 3 = 1,280 faces,
 512x512) and ``bench_suite.py``'s config 2 (batch 8, subdivision 5 =
@@ -57,6 +66,8 @@ from torch.profiler import ProfilerActivity, profile, schedule
 
 import kaolin_tpu_torch as kt
 from kaolin_tpu_torch.kernels import _build
+from kaolin_tpu_torch.kernels import nn_distance as kn
+from kaolin_tpu_torch.kernels import p2m_distance as kp
 from kaolin_tpu_torch.kernels import rasterize as kr
 from kaolin_tpu_torch.kernels import rasterize_bwd as krb
 from kaolin_tpu_torch.kernels import soft_mask as ks
@@ -91,6 +102,24 @@ TEX_BATCH, TEX_SUBDIV, TEX_SIZE, TEX_LR = 8, 5, 256, 1e-6
 TFIT_VIEWS, TFIT_SIZE, TFIT_STEPS = 4, 256, 100
 TFIT_LR_TEX, TFIT_LR_CAM, TFIT_DEG = 2e-2, 2e-3, 4.
 TFIT_FACTOR, TFIT_EYE_FACTOR = 5., 10.
+# config 3 (bench_suite.py:184-202): chamfer between two clouds of M3_N
+# points and point_to_mesh_distance from M3_N points to M3_FACES faces,
+# drawn by utils.interop.metrics_scene
+M3_N, M3_FACES = 100_000, 10_000
+# config 3's mesh fit: a target of FIT3_N points sampled on an ellipsoid
+# (icosphere subdivision FIT3_TARGET_SUBDIV scaled by FIT_SCALE), a unit
+# icosphere of subdivision FIT3_SUBDIV as the model, FIT3_N samples of it
+# per step, Adam at FIT3_LR, the Laplacian term weighted FIT3_LAP; the loss
+# must fall by FIT3_FACTOR in FIT3_STEPS steps (measured first with the
+# plain versions on the CPU: 24.2x at subdivision 2 / 4,000 points and
+# 53.0x at subdivision 3 / 8,000 points, in 100 steps); then the F-score
+# of FIT3_EVAL samples of each, the brute-force kernel's size
+FIT3_N, FIT3_TARGET_SUBDIV, FIT3_SUBDIV = 100_000, 5, 4
+FIT3_STEPS, FIT3_LR, FIT3_LAP, FIT3_FACTOR = 100, 1e-2, 0.1, 20.
+FIT3_EVAL, FIT3_RADIUS = 10_000, 0.05
+# check_sign: CHECK_N seeded points in [-1.5, 1.5]^3 against the unit
+# icosphere of subdivision 5, CHECK_CPU of them also on the CPU
+CHECK_N, CHECK_CPU = 100_000, 4096
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores
@@ -117,6 +146,15 @@ OPS_SOFT_BWD_PAIR = OPS_SOFT_PAIR + 6 + 44
 # sums; backward: the coordinate terms (4 differences, 6 products, 4 sums),
 # the 4 tap weights (8 products) and their 4 adds into the texture
 OPS_GS_POINT, OPS_GS_CHANNEL, OPS_GS_BWD_CHANNEL = 10, 11, 26
+# nearest neighbour, per (query, reference) pair: 3 subtractions, 3
+# products, 2 sums, 1 compare
+OPS_NN_PAIR = 9
+# point to mesh, per (point, face) pair: p - v for 3 vertices (9), 3 dots
+# with the edges (15) and 3 divisions, 3 dots with the edge normals (15),
+# the 6 flags (12 compares), the plane point (a dot, 3 products, 3
+# subtractions: 11), the distance (3 subtractions and a dot: 8), the NaN
+# test and the compare (2)
+OPS_P2M_PAIR = 9 + 15 + 3 + 15 + 12 + 11 + 8 + 2
 
 # stated tolerances, kernel vs plain version on the card (float32): the
 # kernels repeat the plain version's operations in its order without fused
@@ -161,10 +199,17 @@ KERNELS = {
                     'kaolin_tpu/kernels/texture.py:98'),
     'grid_sample_backward': ('kaolin_tpu_torch/csrc/grid_sample.cu',
                              'kaolin_tpu/kernels/texture.py:176'),
+    'nearest_idx': ('kaolin_tpu_torch/csrc/nn_distance.cu',
+                    'kaolin_tpu/kernels/nn_distance.py:64'),
+    'nearest_idx_pruned': ('kaolin_tpu_torch/csrc/nn_distance.cu',
+                           'kaolin_tpu/kernels/nn_distance.py:175'),
+    'p2m_select': ('kaolin_tpu_torch/csrc/p2m_distance.cu',
+                   'kaolin_tpu/kernels/p2m_distance.py:163'),
 }
 COUNTERS = (kr.rasterize_interp, kr.rasterize_select, ks.soft_mask_forward,
             krb.rasterize_backward, ks.soft_mask_backward, ktex.grid_sample,
-            ktex.grid_sample_backward)
+            ktex.grid_sample_backward, kn.nearest_idx, kn.nearest_idx_pruned,
+            kp.p2m_select)
 
 
 def log(*args):
@@ -179,10 +224,11 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters):
+def time_ms(fn, iters, warmup=True):
     """Mean ms of ``fn()`` on the card over ``iters`` calls, after one
-    warm-up call, with CUDA events."""
-    fn()
+    warm-up call unless the caller has just made one, with CUDA events."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1115,6 +1161,346 @@ def check_texture_fits():
                    f'cut the eye error by {TFIT_EYE_FACTOR:g}x')
 
 
+def nn_dist(p1, p2, idx):
+    """Squared distance (float64) from each point of ``p1`` to the point
+    of ``p2`` that ``idx`` chose."""
+    near = torch.gather(p2.double(), 1, idx.long()[..., None].expand(-1, -1,
+                                                                      3))
+    return kn._sq_dist(p1.double(), near)
+
+
+def p2m_dist(points, fv, idx):
+    """Squared distance (float64) from each point to the face ``idx``
+    chose, by the selection's own formula."""
+    sel = torch.gather(fv.double(), 1, idx.long()[..., None, None]
+                       .expand(-1, -1, 3, 3))
+    d, _ = kp.classify_and_distance(points.double(), sel[..., 0, :],
+                                    sel[..., 1, :], sel[..., 2, :])
+    return d
+
+
+def nn_checks(label, p1, p2, errs):
+    """Both NN kernels against the plain version on every query, and the
+    pruned kernel against brute force; the largest difference of the
+    chosen distances goes into ``errs``."""
+    brute = kn.nearest_idx(p1, p2)
+    pruned = kn.nearest_idx_pruned(p1, p2)
+    plain = kn.nearest_idx_plain(p1, p2)
+    torch.cuda.synchronize()
+    m_brute = int((brute != plain).sum())
+    m_pruned = int((pruned != plain).sum())
+    m_pair = int((pruned != brute).sum())
+    ref = nn_dist(p1, p2, plain)
+    e_brute = float((nn_dist(p1, p2, brute) - ref).abs().max())
+    e_pruned = float((nn_dist(p1, p2, pruned) - ref).abs().max())
+    log(f'[{label}] {p1.shape[1]} queries x {p2.shape[1]} references: '
+        f'index mismatches against the plain version: nearest_idx {m_brute}, '
+        f'nearest_idx_pruned {m_pruned}; pruned vs brute force {m_pair}; '
+        f'largest difference of the chosen distances {max(e_brute, e_pruned)}')
+    expect(m_brute == 0 and m_pruned == 0 and m_pair == 0,
+           f'[{label}] a nearest-neighbour kernel disagrees')
+    errs['nearest_idx'] = max(errs['nearest_idx'], e_brute)
+    errs['nearest_idx_pruned'] = max(errs['nearest_idx_pruned'], e_pruned)
+
+
+def p2m_checks(label, points, fv, errs):
+    idx, types = kp.p2m_select(points, fv)
+    ridx, rtypes = kp.p2m_select_plain(points, fv)
+    torch.cuda.synchronize()
+    mi, mt = int((idx != ridx).sum()), int((types != rtypes).sum())
+    err = float((p2m_dist(points, fv, idx)
+                 - p2m_dist(points, fv, ridx)).abs().max())
+    log(f'[{label}] p2m_select, {points.shape[1]} points x {fv.shape[1]} '
+        f'faces: face mismatches {mi}, type mismatches {mt}, largest type '
+        f'{int(types.max())}, largest difference of the chosen distances '
+        f'{err}')
+    expect(mi == 0 and mt == 0, f'[{label}] p2m_select disagrees with its '
+           'plain version')
+    errs['p2m_select'] = max(errs['p2m_select'], err)
+
+
+def grid_mesh_points():
+    """The grid mesh of ``tests/test_metrics.py``: points above its
+    vertices and edge midpoints, where faces tie exactly and region flags
+    overlap (summed types above 6)."""
+    g = np.mgrid[0:5, 0:5].reshape(2, -1).T.astype(np.float32)
+    verts = np.concatenate([g, np.zeros((25, 1), np.float32)], 1)
+    quads = np.array([[i * 5 + j, i * 5 + j + 1, (i + 1) * 5 + j,
+                       (i + 1) * 5 + j + 1]
+                      for i in range(4) for j in range(4)])
+    faces = np.concatenate([quads[:, [0, 1, 2]], quads[:, [1, 3, 2]]])
+    mid = verts[:-1] * 0.5 + verts[1:] * 0.5 + [0, 0, 2]
+    pts = np.concatenate([verts + [0, 0, 1], mid]).astype(np.float32)
+    return kt.utils.interop.pointclouds_from_numpy(pts[None],
+                                                   verts[faces][None])
+
+
+def surface_clouds():
+    """M3_N points sampled on the fit's ellipsoid and M3_N on the unit
+    sphere (icosphere subdivision FIT3_TARGET_SUBDIV), seeded."""
+    gen = torch.Generator('cuda').manual_seed(SEED)
+    ell = kt.utils.interop.ellipsoid_points(M3_N, FIT3_TARGET_SUBDIV,
+                                            FIT_SCALE, generator=gen)
+    sph = kt.utils.interop.ellipsoid_points(M3_N, FIT3_TARGET_SUBDIV,
+                                            (1., 1., 1.), generator=gen)
+    return ell, sph
+
+
+def cdist_argmin(p1, p2, rows=4096):
+    """The library's yardstick for the NN kernels: ``torch.cdist`` without
+    the matrix-product form, then ``argmin``, over blocks of queries."""
+    return torch.cat([torch.cdist(p1[:, i:i + rows], p2, compute_mode=
+                                  'donot_use_mm_for_euclid_dist').argmin(-1)
+                      for i in range(0, p1.shape[1], rows)], dim=1)
+
+
+def metrics_kernel_phases():
+    """The three config-3 kernels against their plain versions on the card
+    at config 3's shapes (both NN directions on every query), on a surface
+    scene, a cloud with exact duplicates and the grid mesh's ties; then
+    each timed beside its plain version and, for the NN kernels, chunked
+    ``torch.cdist`` + ``argmin``. Returns ({kernel: max abs error},
+    {kernel: times}, prepass ms)."""
+    p1, p2, fv = kt.utils.interop.metrics_scene(SEED, M3_N, M3_N, M3_FACES)
+    errs = dict.fromkeys(('nearest_idx', 'nearest_idx_pruned', 'p2m_select'),
+                         0.)
+    nn_checks('config3 p1->p2', p1, p2, errs)
+    nn_checks('config3 p2->p1', p2, p1, errs)
+    ell, sph = surface_clouds()
+    nn_checks('ellipsoid->sphere', ell, sph, errs)
+    nn_checks('sphere->ellipsoid', sph, ell, errs)
+    half = p2[:, :M3_N // 2]
+    dup = torch.cat([half, half.flip(1)], dim=1)
+    nn_checks('exact duplicates', torch.cat([p1[:, :M3_N // 2], half], 1),
+              dup, errs)
+    p2m_checks('config3', p1, fv, errs)
+    p2m_checks('grid mesh ties', *grid_mesh_points(), errs)
+
+    lib = cdist_argmin(p1, p2)
+    e_lib = int((lib.to(torch.int32) != kn.nearest_idx(p1, p2)).sum())
+    lib_ms = time_ms(lambda: cdist_argmin(p1, p2), 1, warmup=False)
+    log(f'[config3] torch.cdist + argmin vs nearest_idx: {e_lib} index '
+        'mismatches (cdist takes a square root and sums in its own order); '
+        f'{lib_ms:.1f} ms, the library time of both NN rows')
+
+    _, _, _, _, starts, nums, keep = kn._pruned_ranges(p1, p2)
+    C2 = -(-M3_N // kn.T2)
+    scanned = int(keep.sum()) * kn.T1 * kn.T2
+    log(f'[config3] pruned ranges p1->p2: {starts.shape[1]} tiles of '
+        f'{kn.T1} queries, {C2} chunks of {kn.T2} references; mean range '
+        f'{float(nums.float().mean()):.2f} chunks, largest {int(nums.max())}; '
+        f'mean kept {float(keep.float().sum(-1).mean()):.2f} chunks; '
+        f'{scanned} pairs scanned, {scanned / M3_N ** 2:.4f} of brute force')
+    nbytes = 4 * (2 * 3 * M3_N + M3_N)
+    shape = (f'1 x {M3_N} queries x {M3_N} references (config 3, '
+             'bench_suite.py:191-194)')
+    times = {}
+    plain_ms = time_ms(lambda: kn.nearest_idx_plain(p1, p2), 2)
+    for name, fn, pairs in (
+            ('nearest_idx', lambda: kn.nearest_idx(p1, p2), M3_N ** 2),
+            ('nearest_idx_pruned', lambda: kn.nearest_idx_pruned(p1, p2),
+             scanned)):
+        bnd = bound(nbytes, pairs * OPS_NN_PAIR)
+        times[name] = dict(ms=time_ms(fn, TIME_ITERS), plain_ms=plain_ms,
+                           library_ms=lib_ms, bound_ms=bnd[0],
+                           bound_by=bnd[1], shape=shape)
+        log(f'[config3] time {name}: ' + json.dumps(times[name]))
+    prepass_ms = time_ms(lambda: kn._pruned_ranges(p1, p2), TIME_ITERS)
+    log(f'[config3] time of the pruned prepass alone: {prepass_ms:.4f} ms, '
+        f'{prepass_ms / times["nearest_idx_pruned"]["ms"]:.3f} of '
+        'nearest_idx_pruned')
+    bnd = bound(4 * (3 * M3_N + 9 * M3_FACES + 2 * M3_N),
+                M3_N * M3_FACES * OPS_P2M_PAIR)
+    times['p2m_select'] = dict(
+        ms=time_ms(lambda: kp.p2m_select(p1, fv), TIME_ITERS),
+        plain_ms=time_ms(lambda: kp.p2m_select_plain(p1, fv), 1),
+        library_ms=None, bound_ms=bnd[0], bound_by=bnd[1],
+        shape=f'1 x {M3_N} points x {M3_FACES} faces (config 3)')
+    log('[config3] time p2m_select: ' + json.dumps(times['p2m_select']))
+    return errs, times, prepass_ms
+
+
+def metrics_path():
+    """Config 3's step (``bench_suite.py:196-199``), as a user calls it,
+    TIME_ITERS chained iterations; checks the launches of each kernel and
+    the step's values. Returns (launches, ms per iteration)."""
+    p1, p2, fv = kt.utils.interop.metrics_scene(SEED, M3_N, M3_N, M3_FACES)
+    reset_counters()
+    p = p1
+    for _ in range(TIME_ITERS):
+        p = kt.utils.interop.metrics_step(p, p2, fv)
+    launches = read_counters('config 3 path')
+    expect(launches['nearest_idx_pruned'] == 2 * TIME_ITERS
+           and launches['p2m_select'] == TIME_ITERS
+           and launches['nearest_idx'] == 0,
+           'config 3 step: expected 2 pruned NN and 1 p2m launch per '
+           'iteration, and no brute-force NN')
+    c = kt.metrics.pointcloud.chamfer_distance(p1, p2)
+    d, idx, types = kt.metrics.trianglemesh.point_to_mesh_distance(p1, fv)
+    analytic = 2. * math.gamma(5. / 3.) * (4. * math.pi * M3_N / 3.) ** (
+        -2. / 3.)
+    log(f'[config3] chamfer {float(c):.6e} ({float(c) / analytic:.4f} of '
+        f'the Poisson value {analytic:.6e} for two uniform clouds), mean '
+        f'point-to-mesh distance {float(d.mean()):.6e}, types '
+        f'{torch.bincount(types.flatten(), minlength=7)[:7].tolist()}')
+    expect(tuple(c.shape) == (1,) and tuple(d.shape) == (1, M3_N)
+           and bool(torch.isfinite(p).all() and torch.isfinite(d).all())
+           and float(d.min()) >= 0. and 0.95 <= float(c) / analytic <= 1.1,
+           'config 3 step: implausible values')
+
+    state = [p1]
+
+    def step():
+        state[0] = kt.utils.interop.metrics_step(state[0], p2, fv)
+
+    ms = time_ms(step, TIME_ITERS)
+    log(f'[config3] step: {ms:.4f} ms per iteration ({TIME_ITERS} chained '
+        'iterations after a warm-up)')
+    profile_calls('[config3] profile step', step, ms, iters=1)
+    return launches, ms
+
+
+def mesh_fit_path():
+    """Config 3's mesh fit with gradients, as a user writes it: Adam on
+    the vertices of a unit icosphere toward points sampled on an
+    ellipsoid, through ``sample_points``, ``chamfer_distance``,
+    ``point_to_mesh_distance`` and ``uniform_laplacian_smoothing``; then
+    the F-score of FIT3_EVAL samples of the fit and of the target. Returns
+    the launches of each kernel in it."""
+    gen = torch.Generator('cuda').manual_seed(SEED)
+    target = kt.utils.interop.ellipsoid_points(FIT3_N, FIT3_TARGET_SUBDIV,
+                                               FIT_SCALE, generator=gen)
+    verts, faces = kt.utils.interop.mesh_from_numpy(
+        *kt.utils.interop.icosphere(FIT3_SUBDIV))
+    v = verts[None].clone().requires_grad_(True)
+    opt = torch.optim.Adam([v], lr=FIT3_LR)
+    reset_counters()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FIT3_STEPS):
+        loss = kt.utils.interop.mesh_fit_loss(v, faces, target, FIT3_N,
+                                              FIT3_LAP, generator=gen)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    g = v.grad
+    with torch.no_grad():
+        fit_pts = kt.ops.mesh.sample_points(v, faces, FIT3_EVAL,
+                                            generator=gen)[0]
+        fs = kt.metrics.pointcloud.f_score(target[:, :FIT3_EVAL], fit_pts,
+                                           radius=FIT3_RADIUS)
+    launches = read_counters('mesh fit path')
+    losses, n = [float(x) for x in losses], FIT3_STEPS
+    log(f'[config3] mesh fit: loss {losses[0]:.6f} -> {losses[-1]:.6f} in '
+        f'{FIT3_STEPS} Adam steps ({losses[0] / losses[-1]:.1f}x; must fall '
+        f'by {FIT3_FACTOR:g}x); after {n // 10}, {n // 4}, {n // 2} steps: '
+        f'{losses[n // 10 - 1]:.6f} {losses[n // 4 - 1]:.6f} '
+        f'{losses[n // 2 - 1]:.6f}; {secs / n * 1e3:.4f} ms '
+        f'per step ({FIT3_N} samples and target points, {faces.shape[0]} '
+        f'faces); last gradient: largest |grad| {float(g.abs().max()):.4e}, '
+        f'finite {bool(torch.isfinite(g).all())}; F-score at radius '
+        f'{FIT3_RADIUS:g} on {FIT3_EVAL} points {float(fs):.4f}')
+    expect(all(math.isfinite(x) for x in losses)
+           and losses[-1] * FIT3_FACTOR <= losses[0]
+           and bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0.,
+           'the config 3 mesh fit did not converge')
+    for name in ('nearest_idx', 'nearest_idx_pruned', 'p2m_select'):
+        expect(launches[name] > 0, f'{name} was not launched on the mesh '
+               'fit path')
+    return launches
+
+
+def check_sign_phase():
+    """``check_sign`` of CHECK_N seeded points against the unit icosphere
+    of subdivision 5 on the card: inside below r = 0.99, outside above
+    1.01, and equal to the CPU on CHECK_CPU of the points."""
+    verts, faces = kt.utils.interop.mesh_from_numpy(
+        *kt.utils.interop.icosphere(5))
+    rng = np.random.default_rng(SEED)
+    pts = torch.tensor(rng.uniform(-1.5, 1.5, (1, CHECK_N, 3)),
+                       dtype=torch.float32, device='cuda')
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inside = kt.ops.mesh.check_sign(verts[None], faces, pts)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    r = pts.norm(dim=-1)
+    wrong_in = int((~inside[r < 0.99]).sum())
+    wrong_out = int(inside[r > 1.01].sum())
+    cpu = kt.ops.mesh.check_sign(verts[None].cpu(), faces.cpu(),
+                                 pts[:, :CHECK_CPU].cpu())
+    mism = int((inside[:, :CHECK_CPU].cpu() != cpu).sum())
+    log(f'check_sign: {CHECK_N} points x {faces.shape[0]} faces in '
+        f'{secs * 1e3:.1f} ms on the card; inside share '
+        f'{float(inside.float().mean()):.4f} (the sphere\'s '
+        f'{4. * math.pi / 3. / 27.:.4f}); points r < 0.99 not inside '
+        f'{wrong_in}, r > 1.01 inside {wrong_out}; card vs CPU on '
+        f'{CHECK_CPU}: {mism} mismatches')
+    expect(wrong_in == 0 and wrong_out == 0 and mism == 0,
+           'check_sign is wrong on the card')
+
+
+def sdf_phase():
+    """``sdf_to_voxelgrids`` of a sphere's SDF on the card (init_res 32, 2
+    upsampling steps, 129^3) against its dense evaluation at 129^3."""
+    def sphere(points):
+        return torch.sqrt((points ** 2).sum(1)) - 0.4
+
+    times = []
+    for init_res, steps in ((32, 2), (128, 0)):
+        t0 = time.perf_counter()
+        out = kt.ops.conversions.sdf_to_voxelgrids([sphere], init_res=init_res,
+                                                   upsampling_steps=steps)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if steps:
+            refined = out
+    same = bool(torch.equal(refined, out))
+    log(f'sdf_to_voxelgrids: {tuple(refined.shape)} refined from 32^3 in '
+        f'{times[0] * 1e3:.1f} ms, dense at 129^3 in {times[1] * 1e3:.1f} '
+        f'ms; equal {same}, occupied {int(refined.sum())}')
+    expect(same and refined.device.type == 'cuda'
+           and refined.dtype == torch.float32, 'sdf_to_voxelgrids: the '
+           'refinement differs from the dense evaluation')
+
+
+def check_metrics_against_cpu():
+    """The mesh fit's loss at a small size (icosphere subdivision 2, 2,000
+    target points, 1,500 samples from fixed uniforms) on the card against
+    the plain versions on the CPU: the loss, then its gradient to the
+    vertices entry by entry. The selections are equal; the gradient's
+    gathers add with atomics on the card, in another order."""
+    verts, faces = kt.utils.interop.icosphere(2)
+    rng = np.random.default_rng(SEED)
+    s = rng.standard_normal((1, 2000, 3))
+    target = (s / np.linalg.norm(s, axis=-1, keepdims=True)
+              * FIT_SCALE).astype(np.float32)
+    uniforms = [rng.random(shape).astype(np.float32)
+                for shape in ((1, 1500), (1, 1500, 1), (1, 1500, 1))]
+
+    def loss_and_grad(device):
+        v, f = kt.utils.interop.mesh_from_numpy(verts[None] * 0.9, faces,
+                                                device=device)
+        v.requires_grad_(True)
+        loss = kt.utils.interop.mesh_fit_loss(
+            v, f, torch.tensor(target, device=device), 1500, FIT3_LAP,
+            uniforms=[torch.tensor(u, device=device) for u in uniforms])
+        return loss.item(), torch.autograd.grad(loss, [v])[0]
+
+    (lg, gg), (lc, gc) = loss_and_grad('cuda'), loss_and_grad('cpu')
+    rel = abs(lg - lc) / abs(lc)
+    log(f'card vs CPU plain, config 3 fit loss: {lg:.8f} vs {lc:.8f}, '
+        f'relative difference {rel:.3e} (tolerance 1e-5)')
+    expect(rel <= 1e-5, 'the config 3 loss on the card disagrees with the '
+           'CPU')
+    grad_close('card vs CPU plain, config 3 fit gradient to the vertices',
+               gg.cpu(), gc)
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device visible', file=sys.stderr)
@@ -1142,6 +1528,8 @@ def main():
             errs[name] = max(errs[name], err)
     tex_errs, tex_times = texture_phases(tsc)
     errs.update(tex_errs)
+    m3_errs, m3_times, prepass_ms = metrics_kernel_phases()
+    errs.update(m3_errs)
 
     launches, _ = main_path(scenes)
     for sc in scenes:
@@ -1176,15 +1564,25 @@ def main():
         f'{TEX_SIZE}x{TEX_SIZE} texture, {TRAIN_STEPS} chained steps)')
     profile_calls('[textured] profile train step', lambda: tsc.train(1), ms)
 
+    m3_launches, m3_ms = metrics_path()
+    for name in ('nearest_idx_pruned', 'p2m_select'):
+        launches[name] = m3_launches[name]
+    log(f'[config3] the pruned prepass alone: {prepass_ms:.4f} ms, twice '
+        f'per step: {2. * prepass_ms / m3_ms:.3f} of the step')
+    launches['nearest_idx'] = mesh_fit_path()['nearest_idx']
+
     check_against_cpu()
     check_textured_against_cpu()
+    check_metrics_against_cpu()
     fit()
     check_texture_fits()
+    check_sign_phase()
+    sdf_phase()
 
     main = scenes[0]
     rows = []
     for name, (source, replaces) in KERNELS.items():
-        t = tex_times.get(name) or dict(
+        t = tex_times.get(name) or m3_times.get(name) or dict(
             times[main.name][name], library_ms=None,
             shape=f'batch {main.batch}, {main.num_faces} faces, {H}x{W}')
         rows.append(dict(name=name, route='cuda', source=source,
@@ -1200,6 +1598,9 @@ def main():
     log(card)
     log(json.dumps({'metric': 'dibr_512_textured_b8_20k',
                     'value': tex_per_frame, 'unit': 'ms/frame'}))
+    log(card)
+    log(json.dumps({'metric': 'chamfer100k_p2m10k', 'value': m3_ms,
+                    'unit': 'ms/iter'}))
     log(card)
     log(json.dumps({'kernels': rows}))
     log(json.dumps({'ok': True, 'device': {

@@ -30,7 +30,8 @@ __all__ = ['SOURCES', 'build_all', 'load', 'launch', 'cuda_inputs',
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / 'csrc'
 _BUILD_DIR = _PKG / '_build'
-SOURCES = ('rasterize', 'rasterize_bwd', 'soft_mask', 'grid_sample')
+SOURCES = ('rasterize', 'rasterize_bwd', 'soft_mask', 'grid_sample',
+           'nn_distance', 'p2m_distance')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC')
 

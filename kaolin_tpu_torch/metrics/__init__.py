@@ -1,1 +1,3 @@
+from . import pointcloud
 from . import render
+from . import trianglemesh

@@ -9,6 +9,10 @@ tensors and cameras; the parity tests feed both packages through them.
 ``scene`` is the DIB-R silhouette scene; ``textured_scene``,
 ``textured_maps``, ``textured_render`` and ``textured_loss`` are the
 textured train step of ``bench_suite.py``'s config 2.
+``pointclouds_from_numpy`` and ``mesh_from_numpy`` carry point clouds and
+meshes over; ``metrics_scene`` and ``metrics_step`` are config 3's
+point-cloud and mesh metrics step, ``ellipsoid_points`` and
+``mesh_fit_loss`` its mesh fit.
 """
 
 import math
@@ -16,14 +20,17 @@ import math
 import numpy as np
 import torch
 
-from .. import ops
+from .. import metrics, ops
+from ..ops.mesh.trianglemesh import _sample_from_uniforms
 from ..render import camera, mesh
 from ..render.mesh.utils import _clip
 
 __all__ = ['icosphere', 'dibr_params_from_numpy', 'extrinsics_from_numpy',
            'intrinsics_from_numpy', 'texture_from_numpy', 'scene',
            'textured_scene', 'textured_maps', 'textured_render',
-           'textured_loss']
+           'textured_loss', 'pointclouds_from_numpy', 'mesh_from_numpy',
+           'metrics_scene', 'metrics_step', 'ellipsoid_points',
+           'mesh_fit_loss']
 
 
 def icosphere(subdiv=2):
@@ -195,3 +202,73 @@ def textured_loss(vertices, texture, cam_params, faces, face_uvs, cam_proj,
     img = textured_render(vertices, texture, cam_params, faces, face_uvs,
                           cam_proj, *target.shape[1:3])
     return torch.mean(torch.abs(img - target))
+
+
+def pointclouds_from_numpy(*arrays, device='cuda'):
+    """Point clouds (B, N, 3), or face vertices (B, F, 3, 3), from numpy
+    arrays to tensors on ``device``, float dtypes kept. One array gives
+    one tensor, several a tuple."""
+    out = tuple(torch.tensor(np.asarray(a), device=device) for a in arrays)
+    return out[0] if len(out) == 1 else out
+
+
+def mesh_from_numpy(vertices, faces, device='cuda'):
+    """(vertices, faces) from numpy arrays to tensors on ``device``: the
+    vertices' float dtype kept, faces int64."""
+    return (torch.tensor(np.asarray(vertices), device=device),
+            torch.tensor(np.asarray(faces), dtype=torch.int64, device=device))
+
+
+def metrics_scene(seed=0, n1=100_000, n2=100_000, num_faces=10_000,
+                  device='cuda'):
+    """``bench_suite.py``'s config-3 inputs: uniform clouds ``p1`` (1, n1,
+    3) and ``p2`` (1, n2, 3) and a triangle soup ``fv`` (1, num_faces, 3,
+    3) in [0, 1), drawn in that order from ``default_rng(seed)`` in float64
+    and rounded to float32, on ``device``."""
+    rng = np.random.default_rng(seed)
+    arrays = (rng.random((1, n1, 3)), rng.random((1, n2, 3)),
+              rng.random((1, num_faces, 3, 3)))
+    return tuple(torch.tensor(a, dtype=torch.float32, device=device)
+                 for a in arrays)
+
+
+def metrics_step(p, p2, fv):
+    """Config 3's step (``bench_suite.py:196-199``): ``chamfer_distance(p,
+    p2)`` and ``point_to_mesh_distance(p, fv)``, folded into the next
+    ``p`` as ``p + 1e-20 * (c + mean(d))``."""
+    c = metrics.pointcloud.chamfer_distance(p, p2)
+    d, _, _ = metrics.trianglemesh.point_to_mesh_distance(p, fv)
+    return p + 1e-20 * (c[..., None, None] + torch.mean(d))
+
+
+def ellipsoid_points(num_points, subdiv=5, scale=(1.3, 0.75, 1.),
+                     generator=None, device='cuda'):
+    """(1, num_points, 3) float32 points sampled uniformly on an icosphere
+    of ``subdiv`` scaled by ``scale``, from ``generator``."""
+    verts, faces = mesh_from_numpy(*icosphere(subdiv), device=device)
+    verts = verts * torch.tensor(scale, dtype=verts.dtype, device=device)
+    return ops.mesh.sample_points(verts[None], faces, num_points,
+                                  generator=generator)[0]
+
+
+def mesh_fit_loss(vertices, faces, target, num_samples, lap_weight,
+                  uniforms=None, generator=None):
+    """Config 3's mesh-fit loss, for ``vertices`` (1, V, 3) and ``target``
+    (1, N, 3): ``chamfer_distance`` from ``num_samples`` points sampled on
+    the mesh to the target, plus the mean ``point_to_mesh_distance`` from
+    the target to the mesh, plus ``lap_weight`` times the mean squared
+    length of ``uniform_laplacian_smoothing(vertices) - vertices``. The
+    samples come from ``uniforms`` (face (1, S), barycentric u and v (1, S,
+    1), in [0, 1)) when given, else from ``generator``."""
+    if uniforms is None:
+        pts = ops.mesh.sample_points(vertices, faces, num_samples,
+                                     generator=generator)[0]
+    else:
+        pts = _sample_from_uniforms(vertices, faces, *uniforms)[0]
+    fv = ops.mesh.index_vertices_by_faces(vertices, faces)
+    cham = metrics.pointcloud.chamfer_distance(pts, target)
+    p2m = metrics.trianglemesh.point_to_mesh_distance(target, fv)[0]
+    lap = metrics.trianglemesh.uniform_laplacian_smoothing(vertices, faces) \
+        - vertices
+    lap = (lap * lap).sum(dim=-1)
+    return torch.mean(cham + p2m.mean(dim=-1) + lap_weight * lap.mean(dim=-1))

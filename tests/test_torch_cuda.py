@@ -23,6 +23,8 @@ import pytest
 import torch
 
 import kaolin_tpu_torch as kt
+from kaolin_tpu_torch.kernels import nn_distance as kn
+from kaolin_tpu_torch.kernels import p2m_distance as kp
 from kaolin_tpu_torch.kernels import rasterize as kr
 from kaolin_tpu_torch.kernels import rasterize_bwd as krb
 from kaolin_tpu_torch.kernels import soft_mask as ks
@@ -255,3 +257,111 @@ def test_textured_step_on_card_matches_cpu(cuda):
     for g, c in zip(gpu, cpu):
         assert torch.isfinite(g).all() and (g != 0).any()
         _grad_close(g.cpu(), c)
+
+
+def _clouds(device, seed, shape1, shape2):
+    g = torch.Generator(device).manual_seed(seed)
+    return (torch.rand(shape1, device=device, generator=g),
+            torch.rand(shape2, device=device, generator=g))
+
+
+@pytest.mark.parametrize('n1,n2', [(100, 77), (513, 1025), (3000, 20000)])
+def test_nearest_idx_kernels_match_plain(cuda, n1, n2):
+    p1, p2 = _clouds(cuda, 5, (2, n1, 3), (2, n2, 3))
+    n, npr = kn.nearest_idx.launches, kn.nearest_idx_pruned.launches
+    out = kn.nearest_idx(p1, p2)
+    pruned = kn.nearest_idx_pruned(p1, p2)
+    assert kn.nearest_idx.launches == n + 1
+    assert kn.nearest_idx_pruned.launches == npr + 1
+    ref = kn.nearest_idx_plain(p1, p2)
+    assert torch.equal(out, ref) and torch.equal(pruned, ref)
+
+
+def test_nearest_idx_kernels_keep_lowest_index_on_ties(cuda):
+    """Exact duplicates in the reference cloud, and queries on them."""
+    p1, p2 = _clouds(cuda, 6, (1, 2000, 3), (1, 9000, 3))
+    p2 = torch.cat([p2, p2.flip(1), p2[:, :500]], dim=1)
+    p1 = torch.cat([p1, p2[:, 100:600]], dim=1)
+    ref = kn.nearest_idx_plain(p1, p2)
+    assert torch.equal(kn.nearest_idx(p1, p2), ref)
+    assert torch.equal(kn.nearest_idx_pruned(p1, p2), ref)
+
+
+def test_nearest_idx_pruned_on_clusters_and_surfaces(cuda):
+    """Two far clusters, and points on a sphere against points on an
+    ellipsoid: the pruned scan against brute force on every query."""
+    g = torch.Generator(cuda).manual_seed(7)
+    a = torch.rand(1, 30000, 3, device=cuda, generator=g)
+    clusters = torch.cat([a[:, :15000] * 0.1, a[:, 15000:] * 0.1 + 5.], 1)
+    s = torch.randn(1, 40000, 3, device=cuda, generator=g)
+    sphere = s / s.norm(dim=-1, keepdim=True)
+    ellipsoid = sphere[:, :30000] * torch.tensor([1.3, 0.75, 1.], device=cuda)
+    for p1, p2 in ((clusters, clusters.flip(1)), (sphere, ellipsoid),
+                   (ellipsoid, sphere)):
+        assert torch.equal(kn.nearest_idx_pruned(p1, p2),
+                           kn.nearest_idx(p1, p2))
+
+
+def _grid_mesh_points(device):
+    """The grid mesh of ``tests/test_metrics.py`` with points above its
+    vertices and edge midpoints (exact ties, summed codes above 6)."""
+    g = np.mgrid[0:5, 0:5].reshape(2, -1).T.astype(np.float32)
+    verts = np.concatenate([g, np.zeros((25, 1), np.float32)], 1)
+    quads = np.array([[i * 5 + j, i * 5 + j + 1, (i + 1) * 5 + j,
+                       (i + 1) * 5 + j + 1]
+                      for i in range(4) for j in range(4)])
+    faces = np.concatenate([quads[:, [0, 1, 2]], quads[:, [1, 3, 2]]])
+    mid = verts[:-1] * 0.5 + verts[1:] * 0.5 + [0, 0, 2]
+    pts = np.concatenate([verts + [0, 0, 1], mid]).astype(np.float32)
+    return (torch.tensor(pts[None], device=device),
+            torch.tensor(verts[faces][None], device=device))
+
+
+@pytest.mark.parametrize('case', ['random', 'grid', 'degenerate'])
+def test_p2m_select_kernel_matches_plain(cuda, case):
+    if case == 'grid':
+        pts, fv = _grid_mesh_points(cuda)
+    else:
+        pts, fv = _clouds(cuda, 8, (2, 3000, 3), (2, 700, 3, 3))
+        if case == 'degenerate':
+            fv[0, 5] = fv[0, 5, :1]                 # a point
+            fv[1, 9, 2] = fv[1, 9, 0] * 0.5 + fv[1, 9, 1] * 0.5  # a segment
+    n = kp.p2m_select.launches
+    idx, types = kp.p2m_select(pts, fv)
+    assert kp.p2m_select.launches == n + 1
+    ridx, rtypes = kp.p2m_select_plain(pts, fv)
+    assert torch.equal(idx, ridx) and torch.equal(types, rtypes)
+    if case == 'grid':
+        assert int(types.max()) > 6
+
+
+def test_config3_fit_loss_on_card_matches_cpu(cuda):
+    """Config 3's mesh-fit loss (icosphere subdivision 2, 2,000 target
+    points, 1,500 samples from fixed uniforms) and its gradient to the
+    vertices, on the card and with the plain versions on the CPU. The
+    selections agree exactly; the gradient's gathers add with atomics on
+    the card, in another order than the CPU's."""
+    verts, faces = kt.utils.interop.icosphere(2)
+    rng = np.random.default_rng(13)
+    s = rng.standard_normal((1, 2000, 3))
+    target = (s / np.linalg.norm(s, axis=-1, keepdims=True)
+              * [1.3, 0.75, 1.]).astype(np.float32)
+    uniforms = [rng.random(shape).astype(np.float32)
+                for shape in ((1, 1500), (1, 1500, 1), (1, 1500, 1))]
+
+    def loss_and_grad(device):
+        v, f = kt.utils.interop.mesh_from_numpy(verts[None] * 0.9, faces,
+                                                device=device)
+        v.requires_grad_(True)
+        loss = kt.utils.interop.mesh_fit_loss(
+            v, f, torch.tensor(target, device=device), 1500, 0.1,
+            uniforms=[torch.tensor(u, device=device) for u in uniforms])
+        return loss, torch.autograd.grad(loss, [v])[0]
+
+    n = kn.nearest_idx.launches, kp.p2m_select.launches
+    (lg, gg), (lc, gc) = loss_and_grad(cuda), loss_and_grad('cpu')
+    assert (kn.nearest_idx.launches, kp.p2m_select.launches) == (
+        n[0] + 2, n[1] + 1)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-5, atol=0)
+    assert torch.isfinite(gg).all() and (gg != 0).any()
+    _grad_close(gg.cpu(), gc)

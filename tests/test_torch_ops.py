@@ -248,12 +248,14 @@ def _c_entry_points():
 def test_ctypes_signatures_match_sources():
     """Each wrapper's ctypes argument types are those of its C entry
     point, so a launch passes every pointer whole and in its place."""
-    from kaolin_tpu_torch.kernels import (rasterize, rasterize_bwd,
+    from kaolin_tpu_torch.kernels import (nn_distance, p2m_distance,
+                                          rasterize, rasterize_bwd,
                                           soft_mask, texture)
     entry = _c_entry_points()
     seen = 0
-    for mod in (rasterize, rasterize_bwd, soft_mask, texture):
+    for mod in (rasterize, rasterize_bwd, soft_mask, texture, nn_distance,
+                p2m_distance):
         for name, argtypes in mod._SIGNATURES.items():
             assert entry[name] == argtypes, name
             seen += 1
-    assert seen == len(entry) == 7
+    assert seen == len(entry) == 10
