@@ -8,7 +8,7 @@ Run from the root of the repository, on a machine with a CUDA card and
 
 It builds the port's CUDA kernels from ``kaolin_tpu_torch/csrc/``, holds
 each kernel against its plain PyTorch version on the card at the shapes of
-the paths below, and drives five paths, checking that every kernel of each
+the paths below, and drives seven paths, checking that every kernel of each
 ran in it:
 
 - the forward render (``prepare_vertices`` -> ``dibr_rasterization`` ->
@@ -27,7 +27,16 @@ ran in it:
   ``chamfer100k_p2m10k``;
 - config 3's mesh fit: Adam on a unit icosphere (5,120 faces) toward
   100,000 points on an ellipsoid, through ``sample_points``, Chamfer,
-  point-to-mesh and Laplacian terms, then an F-score on 10,000 points.
+  point-to-mesh and Laplacian terms, then an F-score on 10,000 points;
+- config 4's DefTet step (``bench_suite.py:205-229``: ``deftet_sparse_render``
+  of 64x64 pixels and 10,000 random faces, ``knum=30``, the sum of the
+  squared features, its gradient to the image coords, 20 chained
+  ``fvi - 1e-9*g`` steps), timed as ``deftet_64x64_10kfaces``;
+- config 5's SPC ray trace (``bench_suite.py:232-290``: 200,000 points on a
+  sphere shell of radius 0.7 quantized at level 8, 256x256 primary rays
+  from (0, 0, 2.5) with a 60-degree fov, ``unbatched_raytrace`` from the
+  origin and direction arrays), timed as ``spc_raytrace_256_L8``; its first
+  hits are held against the analytic sphere.
 
 It then checks the render, the gradient, the textured step and config 3's
 fit loss against the plain versions on the CPU on small inputs, fits a
@@ -35,8 +44,9 @@ sphere's silhouette to an ellipsoid's with Adam (batch 1, 256x256,
 silhouette loss only, ``bench_suite.py``'s config 1), fits a striped
 texture and perturbed cameras to four views with Adam
 (``examples/dibr_train.py``'s scene), checks ``check_sign`` and
-``sdf_to_voxelgrids`` on the card, and times it all with CUDA events and
-``torch.profiler``.
+``sdf_to_voxelgrids`` on the card, checks config 4's loss and gradients,
+the tet metrics, marching tetrahedra and the pack ops against the CPU, and
+times it all with CUDA events and ``torch.profiler``.
 
 Sizes: ``bench.py``'s (batch 4, icosphere subdivision 3 = 1,280 faces,
 512x512) and ``bench_suite.py``'s config 2 (batch 8, subdivision 5 =
@@ -58,6 +68,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -66,11 +77,13 @@ from torch.profiler import ProfilerActivity, profile, schedule
 
 import kaolin_tpu_torch as kt
 from kaolin_tpu_torch.kernels import _build
+from kaolin_tpu_torch.kernels import deftet_topk as kd
 from kaolin_tpu_torch.kernels import nn_distance as kn
 from kaolin_tpu_torch.kernels import p2m_distance as kp
 from kaolin_tpu_torch.kernels import rasterize as kr
 from kaolin_tpu_torch.kernels import rasterize_bwd as krb
 from kaolin_tpu_torch.kernels import soft_mask as ks
+from kaolin_tpu_torch.kernels import spc_traverse as kst
 from kaolin_tpu_torch.kernels import texture as ktex
 from kaolin_tpu_torch.kernels.rasterize import _pixel_coords
 from kaolin_tpu_torch.render.mesh.dibr import _scaled_inputs
@@ -120,6 +133,16 @@ FIT3_EVAL, FIT3_RADIUS = 10_000, 0.05
 # check_sign: CHECK_N seeded points in [-1.5, 1.5]^3 against the unit
 # icosphere of subdivision 5, CHECK_CPU of them also on the CPU
 CHECK_N, CHECK_CPU = 100_000, 4096
+# config 4 (bench_suite.py:205-229): DefTet on a D4_SIDE^2 pixel grid and
+# D4_FACES seeded faces, knum D4_KNUM, the step fvi - D4_LR * grad; the
+# selection also at knum D4_BIG_KNUM on a D4_BIG_SIDE^2 grid
+D4_SIDE, D4_FACES, D4_KNUM, D4_LR = 64, 10_000, 30, 1e-9
+D4_BIG_SIDE, D4_BIG_KNUM = 32, 300
+# config 5 (bench_suite.py:232-290): C5_N seeded points on a sphere shell of
+# radius C5_RADIUS quantized at C5_LEVEL, C5_RES^2 primary rays from
+# C5_CAM's lookat camera (eye, at, up, fov)
+C5_LEVEL, C5_N, C5_RADIUS, C5_RES = 8, 200_000, 0.7, 256
+C5_CAM = ((0., 0., 2.5), (0., 0., 0.), (0., 1., 0.), math.pi / 3)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores
@@ -155,6 +178,21 @@ OPS_NN_PAIR = 9
 # subtractions: 11), the distance (3 subtractions and a dot: 8), the NaN
 # test and the compare (2)
 OPS_P2M_PAIR = 9 + 15 + 3 + 15 + 12 + 11 + 8 + 2
+# DefTet selection: 4 compares per (pixel, face) pair for the bbox test;
+# for a pair inside the bbox, 6 subtractions to the pixel, 3 edge
+# functions (2 mul, 1 sub each), the normalisation (2 add, the sign and
+# the eps product and sum: 4), 3 divisions, 3 compares, the depth (3 mul,
+# 2 add) and 2 range compares
+OPS_DEFTET_BBOX = 4
+OPS_DEFTET_PAIR = 6 + 9 + 4 + 3 + 3 + 5 + 2
+# SPC traversal: per nugget, 3 reciprocals and the cell (centre and
+# octant code: 3 x 8); per tested child, its centre (6) and the slab test
+# (3 subtractions, 3 compares, 3 x (mul, sub, mul), 6 x (mul, add), 6
+# compares, 3 sign tests, the selects: 36); the exit test again at the
+# last level
+OPS_TRAV_NUGGET = 3 + 24
+OPS_TRAV_CHILD = 6 + 36
+OPS_TRAV_EXIT = 36
 
 # stated tolerances, kernel vs plain version on the card (float32): the
 # kernels repeat the plain version's operations in its order without fused
@@ -205,11 +243,20 @@ KERNELS = {
                            'kaolin_tpu/kernels/nn_distance.py:175'),
     'p2m_select': ('kaolin_tpu_torch/csrc/p2m_distance.cu',
                    'kaolin_tpu/kernels/p2m_distance.py:163'),
+    'deftet_topk': ('kaolin_tpu_torch/csrc/deftet_topk.cu',
+                    'kaolin_tpu/kernels/deftet_topk.py:147'),
+    'traverse_banded_cc': ('kaolin_tpu_torch/csrc/spc_traverse.cu',
+                           'kaolin_tpu/kernels/spc_traverse.py:982'),
+    'traverse_banded': ('kaolin_tpu_torch/csrc/spc_traverse.cu',
+                        'kaolin_tpu/kernels/spc_traverse.py:435'),
 }
 COUNTERS = (kr.rasterize_interp, kr.rasterize_select, ks.soft_mask_forward,
             krb.rasterize_backward, ks.soft_mask_backward, ktex.grid_sample,
             ktex.grid_sample_backward, kn.nearest_idx, kn.nearest_idx_pruned,
-            kp.p2m_select)
+            kp.p2m_select, kd.deftet_topk, kst.traverse)
+# the counter of each KERNELS row whose wrapper has another name: the one
+# CUDA traversal meets both TPU traversals' contract
+COUNTER_OF = {'traverse_banded_cc': 'traverse', 'traverse_banded': 'traverse'}
 
 
 def log(*args):
@@ -1501,6 +1548,432 @@ def check_metrics_against_cpu():
                gg.cpu(), gc)
 
 
+def deftet_bound(pc, fvi, valid, knum):
+    """(bound ms, 'bytes' or 'operations', bbox pairs) of one
+    ``deftet_topk`` call: 4 compares for every (pixel, face) pair and the
+    scoring of each pair whose bbox holds the pixel."""
+    B, P, _ = pc.shape
+    F = fvi.shape[1]
+    bbox = kd.face_bboxes(fvi, valid)
+    pairs = 0
+    for p0 in range(0, P, 512):
+        px = pc[:, p0:p0 + 512, None, 0]
+        py = pc[:, p0:p0 + 512, None, 1]
+        pairs += int(((px >= bbox[:, None, :, 0]) & (px < bbox[:, None, :, 2])
+                      & (py >= bbox[:, None, :, 1])
+                      & (py < bbox[:, None, :, 3])).sum())
+    # coords and ranges (4) per pixel, z and image coords (9) per face and
+    # its valid byte in; knum ids per pixel out
+    nbytes = 4 * B * (4 * P + 9 * F + P * knum) + B * F
+    ops = B * P * F * OPS_DEFTET_BBOX + pairs * OPS_DEFTET_PAIR
+    return bound(nbytes, ops) + (pairs,)
+
+
+def deftet_checks(label, args, knum, errs):
+    """``deftet_topk`` against its plain version: every id equal."""
+    out = kd.deftet_topk(*args, knum, 1e-8)
+    ref = kd.deftet_topk_plain(*args, knum, 1e-8)
+    torch.cuda.synchronize()
+    bad = int((out != ref).sum())
+    err = float((out.double() - ref.double()).abs().max())
+    log(f'[config4] {label}: {args[0].shape[1]} pixels x {args[2].shape[1]} '
+        f'faces, knum {knum}: {bad} id mismatches of {out.numel()}; '
+        f'{int((out >= 0).sum())} ids kept, {int((out >= 0).all(-1).sum())} '
+        'pixels full')
+    expect(bad == 0, f'[config4] {label}: deftet_topk disagrees with its '
+           'plain version')
+    errs['deftet_topk'] = max(errs['deftet_topk'], err)
+    return out
+
+
+def deftet_kernel_phases(scene):
+    """``deftet_topk`` against its plain version on the card: config 4's
+    scene at knum 30, its faces on a D4_BIG_SIDE^2 grid at knum 300,
+    every face doubled (exact ties across knum), and faces at depths +0.0
+    and -0.0; then the kernel and its plain version timed at config 4.
+    Returns ({kernel: max abs error}, {kernel: times})."""
+    pc, rr, fvz, fvi, _ = scene
+    valid = torch.ones(fvz.shape[:2], dtype=torch.bool, device='cuda')
+    errs = {'deftet_topk': 0.}
+    deftet_checks('config 4', (pc, rr, fvz, fvi, valid), D4_KNUM, errs)
+    pc2, rr2 = kt.utils.interop.deftet_scene(seed=SEED, side=D4_BIG_SIDE,
+                                             num_faces=D4_FACES)[:2]
+    deftet_checks('knum 300', (pc2, rr2, fvz, fvi, valid), D4_BIG_KNUM, errs)
+    dup = (torch.cat([fvz, fvz.flip(1)], 1), torch.cat([fvi, fvi.flip(1)], 1))
+    deftet_checks('every face twice', (pc, rr, *dup, torch.cat([valid] * 2,
+                                                               1)),
+                  D4_KNUM, errs)
+    zr = torch.tensor([-1., 1.], device='cuda').expand_as(pc).contiguous()
+    tri = torch.tensor([[-3., -3.], [3., -3.], [0., 3.]], device='cuda')
+    zeros = torch.tensor([-0., 0., -0., 0., -0.5, 0.5], device='cuda')
+    out = deftet_checks(
+        'depths -0.0 and +0.0', (pc, zr, zeros[None, :, None].expand(
+            1, 6, 3).contiguous(), tri.expand(1, 6, 3, 2).contiguous(),
+            torch.ones((1, 6), dtype=torch.bool, device='cuda')), 5, errs)
+    expect(bool((out == torch.tensor([5, 1, 3, 0, 2], dtype=torch.int32,
+                                     device='cuda')).all()),
+           '[config4] +0.0 does not rank above -0.0')
+    args = (pc, rr, fvz, fvi, valid)
+    b_ms, b_by, pairs = deftet_bound(pc, fvi, valid, D4_KNUM)
+    times = {'deftet_topk': dict(
+        ms=time_ms(lambda: kd.deftet_topk(*args, D4_KNUM, 1e-8), TIME_ITERS),
+        plain_ms=time_ms(lambda: kd.deftet_topk_plain(*args, D4_KNUM, 1e-8),
+                         2),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        shape=f'1 x {pc.shape[1]} pixels x {D4_FACES} faces, knum '
+              f'{D4_KNUM} (config 4, bench_suite.py:205-229)')}
+    log(f'[config4] {pairs} (pixel, face) pairs pass the bbox test, '
+        f'{pairs / (pc.shape[1] * D4_FACES):.4f} of all')
+    log('[config4] time deftet_topk: ' + json.dumps(times['deftet_topk']))
+    return errs, times
+
+
+def axis_rays(n, seed):
+    """Rays along +-x, +-y, +-z (the other components 0.0 or -0.0) from
+    origins on the level-8 cell planes (multiples of 2^-7) across the
+    ray; and rays of general direction from origins on those planes."""
+    rng = np.random.default_rng(seed)
+    axis = rng.integers(0, 3, n)
+    sign = rng.choice([-1., 1.], n)
+    d = np.where(rng.random((n, 3)) < 0.5, 0., -0.)
+    d[np.arange(n), axis] = sign
+    o = np.round(rng.uniform(-1, 1, (n, 3)) * 128.) / 128.
+    o[np.arange(n), axis] = -1.5 * sign
+    lo = np.round(rng.uniform(-1, 1, (n, 3)) * 128.) / 128.
+    ld = rng.normal(size=(n, 3))
+    ld[: n // 2, 0] = 0.
+    ld /= np.linalg.norm(ld, axis=-1, keepdims=True)
+    return [tuple(torch.tensor(a, dtype=torch.float32, device='cuda')
+                  for a in pair) for pair in ((o, d), (lo, ld))]
+
+
+def traverse_checks(label, spc, o, d, with_exit, errs):
+    """The traversal against its plain version: ids, depths and counts
+    equal."""
+    octree, ph, _, exsum = spc
+    out = kst.traverse(octree, exsum, ph, o, d, C5_LEVEL, with_exit)
+    ref = kst.traverse_plain(octree, exsum, ph, o, d, C5_LEVEL, with_exit)
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(a, b)) for a, b in zip(out[:3], ref[:3])]
+    err = float((out[2].double() - ref[2].double()).abs().max()) \
+        if out[3] else 0.
+    log(f'[config5] {label}: {o.shape[0]} rays, level {C5_LEVEL}, exit '
+        f'{with_exit}: {out[3]} hits (plain {ref[3]}), per level {out[4]}; '
+        f'ray ids, point ids, depths equal {same}, largest depth difference '
+        f'{err}')
+    expect(all(same) and out[3] == ref[3] and out[4] == ref[4],
+           f'[config5] {label}: the traversal disagrees with its plain '
+           'version')
+    for name in ('traverse_banded_cc', 'traverse_banded'):
+        errs[name] = max(errs[name], err)
+    return out
+
+
+def traverse_bound(spc, o, d, with_exit, hits):
+    """(bound ms, 'bytes' or 'operations') of one level-C5_LEVEL trace: per
+    level, each nugget's ray and cell set-up and the slab test of each
+    existing child of its node (and the exit test at the last level);
+    the nuggets of each level come from traces to that level."""
+    octree, ph, _, exsum = spc
+    R = o.shape[0]
+    children = kt.ops.spc.uint8_bits_sum
+    nuggets, cands = [R], [R * int(children(octree[:1]))]
+    for l in range(1, C5_LEVEL):
+        pidx = kst.traverse(octree, exsum, ph, o, d, l)[1]
+        nuggets.append(pidx.shape[0])
+        cands.append(int(children(octree[pidx.long()]).sum()))
+    ops = (sum(nuggets) * OPS_TRAV_NUGGET + sum(cands) * OPS_TRAV_CHILD
+           + (cands[-1] * OPS_TRAV_EXIT if with_exit else 0))
+    ncols = 2 if with_exit else 1
+    # the octree, exsum and point hierarchy and the rays in; ids and depths
+    # of every hit out
+    nbytes = (octree.numel() + 4 * exsum.numel() + 2 * ph.numel() + 24 * R
+              + hits * (8 + 4 * ncols))
+    log(f'[config5] nuggets per level {nuggets}, children tested {cands}')
+    return bound(nbytes, ops)
+
+
+def traverse_kernel_phases(spc, rays):
+    """The traversal against its plain version on the card at config 5
+    (with and without exit depths), and on axis-aligned and lattice-plane
+    rays; then the traversal and its plain version timed at config 5.
+    Returns ({kernel: max abs error}, {kernel: times})."""
+    octree, ph, _, exsum = spc
+    o, d = rays
+    errs = {'traverse_banded_cc': 0., 'traverse_banded': 0.}
+    out = traverse_checks('config 5', spc, o, d, False, errs)
+    traverse_checks('config 5', spc, o, d, True, errs)
+    for label, (ao, ad) in zip(('axis-aligned', 'lattice-plane'),
+                               axis_rays(o.shape[0], SEED)):
+        traverse_checks(label, spc, ao, ad, False, errs)
+        traverse_checks(label, spc, ao, ad, True, errs)
+    b_ms, b_by = traverse_bound(spc, o, d, False, out[3])
+    t = dict(ms=time_ms(lambda: kst.traverse(octree, exsum, ph, o, d,
+                                             C5_LEVEL), TIME_ITERS),
+             plain_ms=time_ms(lambda: kst.traverse_plain(
+                 octree, exsum, ph, o, d, C5_LEVEL), 2),
+             library_ms=None, bound_ms=b_ms, bound_by=b_by,
+             shape=f'{o.shape[0]} rays, level {C5_LEVEL}, {ph.shape[0]} '
+                   'points (config 5, bench_suite.py:232-290)')
+    log('[config5] time traverse: ' + json.dumps(t))
+    return errs, {'traverse_banded_cc': t, 'traverse_banded': t}
+
+
+def deftet_step(scene, fvi):
+    """Config 4's step (``bench_suite.py:218-224``): the loss, its
+    gradient to the image coords and ``fvi - 1e-9 * g``."""
+    pc, rr, fvz, _, ff = scene
+    fvi = fvi.detach().requires_grad_(True)
+    loss = kt.utils.interop.deftet_loss(pc, rr, fvz, fvi, ff, knum=D4_KNUM)
+    g, = torch.autograd.grad(loss, [fvi])
+    return fvi.detach() - D4_LR * g, loss, g
+
+
+def deftet_path(scene):
+    """Config 4's step, as a user writes it, TRAIN_STEPS chained steps;
+    checks the launches and the values. Returns (launches, ms per
+    step)."""
+    reset_counters()
+    fvi, losses = scene[3], []
+    for _ in range(TRAIN_STEPS):
+        fvi, loss, g = deftet_step(scene, fvi)
+        losses.append(loss.detach())
+    launches = read_counters('config 4 path')
+    expect(launches['deftet_topk'] == TRAIN_STEPS
+           and sum(launches.values()) == TRAIN_STEPS,
+           'config 4 step: expected one deftet_topk launch per step and no '
+           'other kernel')
+    gmax = float(g.abs().max())
+    log(f'[config4] step: loss {float(losses[0]):.6f} -> '
+        f'{float(losses[-1]):.6f} over {TRAIN_STEPS} steps, largest |grad| '
+        f'{gmax:.4e}, nonzero share {float((g != 0).float().mean()):.4f}')
+    expect(all(bool(torch.isfinite(x)) for x in losses) and gmax > 0.
+           and bool(torch.isfinite(g).all()), 'config 4 step: non-finite '
+           'or zero gradient')
+    state = [scene[3]]
+
+    def step():
+        state[0] = deftet_step(scene, state[0])[0]
+
+    ms = time_ms(step, TIME_ITERS)
+    log(f'[config4] step: {ms:.4f} ms per iteration ({TIME_ITERS} chained '
+        'iterations after a warm-up)')
+    profile_calls('[config4] profile step', step, ms)
+    return launches, ms
+
+
+def crosses_cell_edge(o, d, t_end):
+    """For each ray (float64 origins and directions), whether on its way
+    to ``t_end`` it passes, inside the octree's cube, within 1e-5 of a
+    level-C5_LEVEL cell of a cell edge, where it lies on two cell planes
+    at once: there the slab test's boundary touches (``|lt| <= r``) go
+    either way by rounding, and a ray can miss the cells beyond the
+    edge."""
+    n = 2 ** C5_LEVEL
+    planes = -1. + torch.arange(n + 1, dtype=torch.float64,
+                                device=o.device) * (2. / n)
+    out = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+    for a in range(3):
+        t = (planes[None, :] - o[:, a:a + 1]) / d[:, a:a + 1]
+        on_way = torch.isfinite(t) & (t >= 0.) & (t <= t_end[:, None])
+        for c in range(3):
+            on_way &= (o[:, c:c + 1] + t * d[:, c:c + 1]).abs() <= 1.
+        for b in range(3):
+            if b != a:
+                cell = (o[:, b:b + 1] + t * d[:, b:b + 1] + 1.) * (n / 2.)
+                out |= (on_way & ((cell - cell.round()).abs() < 1e-5)).any(-1)
+    return out
+
+
+def first_hit_check(spc, o, d, ridx, depth):
+    """Config 5's end-to-end check against the analytic sphere of radius
+    C5_RADIUS. A ray whose analytic entry point lies in an occupied
+    level-C5_LEVEL voxel must hit, and its first hit (``mark_first_hit``)
+    lies at most the voxel's reach before that point: ``t* - diag / cos <=
+    t <= t*``, with diag the voxel diagonal and cos the angle to the
+    normal there (an earlier voxel may hold points of the sphere out to a
+    diagonal from it). Only a ray that passes through a cell edge on its
+    way (``crosses_cell_edge``) may miss its entry voxel. Rays through
+    empty voxels of the shell reach its far side. No ray passing farther
+    than a diagonal from the sphere hits."""
+    octree, _, _, exsum = spc
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore', DeprecationWarning)
+        first = kt.render.spc.mark_first_hit(ridx)
+    r = ridx[first].long()
+    t = depth[first, 0].double()
+    od, dd = o.double(), d.double()
+    b = (od * dd).sum(-1)
+    disc = b * b - ((od * od).sum(-1) - C5_RADIUS ** 2)
+    tstar = -b - torch.sqrt(disc.clamp(min=0.))
+    entry = (od + tstar[:, None] * dd).float()
+    occupied = (disc >= 0) & (kt.ops.spc.unbatched_query(
+        octree, exsum, entry, C5_LEVEL) >= 0)
+    diag = math.sqrt(3.) * 2. / 2 ** C5_LEVEL
+    cos = -((entry.double() * dd).sum(-1)) / C5_RADIUS
+    first_t = torch.full_like(tstar, math.inf)
+    first_t[r] = t
+    gap = first_t - tstar
+    early = occupied & (gap < -diag / cos.clamp(min=1e-12) - 1e-5)
+    late = occupied & (gap > 1e-5)            # no hit counts as late
+    edge = torch.zeros_like(late)
+    edge[late] = crosses_cell_edge(od[late], dd[late], tstar[late])
+    within = float((gap[occupied].abs() <= diag).float().mean())
+    far = torch.isfinite(first_t) & (
+        torch.sqrt((od * od).sum(-1) - b * b) > C5_RADIUS + diag)
+    log(f'[config5] first hits: {r.shape[0]} rays hit, {int(occupied.sum())} '
+        f'rays enter the sphere in an occupied voxel; their first hit lies '
+        f'within one voxel diagonal ({diag:.5f}) of the analytic entry for '
+        f'{within:.4f} of them, {int(early.sum())} before t* - diag / cos, '
+        f'{int(late.sum())} after t* or never ({int(edge.sum())} of them '
+        f'through a cell edge); {int((disc >= 0).sum() - occupied.sum())} '
+        f'rays enter through empty voxels; {int(far.sum())} hits farther '
+        'than a diagonal from the sphere')
+    expect(int(early.sum()) == 0 and bool((edge == late).all())
+           and int(far.sum()) == 0,
+           '[config5] first hits disagree with the analytic sphere')
+
+
+def raytrace_path(spc, rays):
+    """Config 5's trace (``unbatched_raytrace`` from origin and direction
+    arrays), as a user calls it; checks the launches, the hits and the
+    first hits against the analytic sphere. Returns (launches, ms per
+    trace, (ridx, pidx, depth))."""
+    octree, ph, pyr, exsum = spc
+    o, d = rays
+    reset_counters()
+    ridx, pidx, depth = kt.render.spc.unbatched_raytrace(
+        octree, ph, pyr, exsum, o, d, C5_LEVEL)
+    launches = read_counters('config 5 path')
+    expect(launches['traverse'] == 1 and sum(launches.values()) == 1,
+           'config 5 trace: expected one traversal and no other kernel')
+    lo, hi = int(pyr[1, C5_LEVEL]), int(pyr[1, C5_LEVEL + 1])
+    expect(bool((ridx[1:] >= ridx[:-1]).all()) and bool((pidx >= lo).all())
+           and bool((pidx < hi).all()) and bool((depth > 0).all())
+           and bool(torch.isfinite(depth).all()),
+           'config 5 trace: hits out of order or out of range')
+    first_hit_check(spc, o, d, ridx, depth)
+
+    def trace():
+        kt.render.spc.unbatched_raytrace(octree, ph, pyr, exsum, o, d,
+                                         C5_LEVEL)
+
+    ms = time_ms(trace, TIME_ITERS)
+    log(f'[config5] trace: {ms:.4f} ms per trace ({o.shape[0]} rays, level '
+        f'{C5_LEVEL}, {ridx.shape[0]} hits; {TIME_ITERS} traces after a '
+        'warm-up)')
+    profile_calls('[config5] profile trace', trace, ms)
+    return launches, ms, (ridx, pidx, depth)
+
+
+def check_deftet_against_cpu():
+    """Config 4's loss and its gradients to the image coords and the
+    features on a small scene (24x24 pixels, 600 faces), on the card
+    against the plain versions on the CPU."""
+    def loss_and_grads(device):
+        pc, rr, fvz, fvi, ff = kt.utils.interop.deftet_scene(
+            seed=SEED, side=24, num_faces=600, device=device)
+        fvi.requires_grad_(True)
+        ff.requires_grad_(True)
+        loss = kt.utils.interop.deftet_loss(pc, rr, fvz, fvi, ff)
+        return (loss.item(),) + torch.autograd.grad(loss, [fvi, ff])
+
+    card, cpu = loss_and_grads('cuda'), loss_and_grads('cpu')
+    rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+    log(f'card vs CPU plain, config 4 loss: {card[0]:.8f} vs {cpu[0]:.8f}, '
+        f'relative difference {rel:.3e} (tolerance 1e-5)')
+    expect(rel <= 1e-5, 'the config 4 loss on the card disagrees with the '
+           'CPU')
+    for name, g, ref in zip(('image coords', 'features'), card[1:], cpu[1:]):
+        grad_close(f'card vs CPU plain, config 4 gradient to the {name}',
+                   g.cpu(), ref)
+
+
+def check_tets_against_cpu():
+    """``equivolume`` and ``amips`` of a perturbed tet grid (with their
+    gradients) and ``marching_tetrahedra`` of a sphere's SDF on
+    ``tet_grid(16)``, on the card against the CPU."""
+    verts, tets = kt.ops.conversions.tet_grid(16)
+    rng = np.random.default_rng(SEED)
+    moved = verts + rng.uniform(-0.02, 0.02, verts.shape).astype(np.float32)
+    for name, fn in (
+            ('equivolume', lambda tv, rest: kt.metrics.tetmesh.equivolume(
+                tv)),
+            ('amips', lambda tv, rest: kt.metrics.tetmesh.amips(
+                tv, kt.ops.mesh.inverse_vertices_offset(rest)))):
+        def value_and_grad(device):
+            v = torch.tensor(moved, device=device, requires_grad=True)
+            t = torch.tensor(tets, device=device)
+            val = fn(v[t][None], torch.tensor(verts, device=device)[t][None])
+            return val.item(), torch.autograd.grad(val.sum(), [v])[0]
+
+        card, cpu = value_and_grad('cuda'), value_and_grad('cpu')
+        rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+        log(f'card vs CPU, {name} of a perturbed tet grid ({tets.shape[0]} '
+            f'tets): {card[0]:.8e} vs {cpu[0]:.8e}, relative difference '
+            f'{rel:.3e} (tolerance 1e-5)')
+        expect(rel <= 1e-5, f'{name} on the card disagrees with the CPU')
+        grad_close(f'card vs CPU, {name} gradient', card[1].cpu(), cpu[1])
+    sdf = np.linalg.norm(verts - [0.02, -0.01, 0.03], axis=-1) - 0.3
+    v, f, ti, vc, fc, tic = (x[0] for dev in ('cuda', 'cpu')
+                             for x in kt.ops.conversions.marching_tetrahedra(
+                                 torch.tensor(verts, device=dev)[None],
+                                 torch.tensor(tets), torch.tensor(
+                                     sdf, dtype=torch.float32,
+                                     device=dev)[None], return_tet_idx=True))
+    err = float((v.cpu() - vc).abs().max())
+    radius = (v.cpu() - torch.tensor([0.02, -0.01, 0.03])).norm(dim=-1)
+    log(f'card vs CPU, marching_tetrahedra of a sphere SDF on tet_grid(16): '
+        f'{v.shape[0]} vertices, {f.shape[0]} faces; faces equal '
+        f'{bool(torch.equal(f.cpu(), fc))}, tet_idx equal '
+        f'{bool(torch.equal(ti.cpu(), tic))}, largest vertex difference '
+        f'{err:.3e}; vertex radius {float(radius.min()):.4f} .. '
+        f'{float(radius.max()):.4f} (sphere 0.3)')
+    expect(torch.equal(f.cpu(), fc) and torch.equal(ti.cpu(), tic)
+           and err <= 1e-6 and float((radius - 0.3).abs().max()) < 1 / 16.,
+           'marching_tetrahedra on the card disagrees with the CPU')
+
+
+def check_pack_ops_against_cpu(hits):
+    """The pack ops over config 5's hits (packs of one ray's hits, depth
+    as the feature, the depths' spread as the density), on the card
+    against the CPU; and the card's primary rays against the CPU's."""
+    ridx, _, depth = hits
+
+    def pack_ops(device):
+        r, x = ridx.to(device), depth.to(device)
+        b = kt.render.spc.mark_pack_boundaries(r)
+        tau = (x - x.mean()).abs()
+        feats, trans = kt.render.spc.exponential_integration(x, tau, b)
+        return (b, kt.render.spc.diff(x, b), kt.render.spc.sum_reduce(x, b),
+                kt.render.spc.cumsum(x, b, exclusive=True),
+                kt.render.spc.cumprod(x, b, reverse=True), feats, trans)
+
+    card, cpu = pack_ops('cuda'), pack_ops('cpu')
+    same_b = bool(torch.equal(card[0].cpu(), cpu[0]))
+    # largest difference over the largest |value|: exp rounds otherwise on
+    # the card, and 1 - exp(-tau) of a small tau cancels
+    errs = [float((a.cpu().double() - c.double()).abs().max()
+                  / c.double().abs().max().clamp(min=1e-300))
+            for a, c in zip(card[1:], cpu[1:])]
+    log(f'card vs CPU, pack ops over {ridx.shape[0]} hits in '
+        f'{int(cpu[0].sum())} packs: boundaries equal {same_b}; largest '
+        'differences over the largest |value| (diff, sum_reduce, cumsum, '
+        'cumprod, exponential_integration\'s two outputs): '
+        f'{errs} (tolerance 1e-5)')
+    expect(same_b and max(errs) <= 1e-5, 'the pack ops on the card disagree '
+           'with the CPU')
+    card = kt.render.spc.generate_primary_rays(C5_RES, C5_RES, *C5_CAM)
+    cpu = kt.render.spc.generate_primary_rays(C5_RES, C5_RES, *C5_CAM,
+                                              device='cpu')
+    diffs = int((card[1].cpu() != cpu[1]).sum())
+    log(f'card vs CPU, config 5 primary rays: {diffs} of '
+        f'{cpu[1].numel()} direction components differ, largest '
+        f'{float((card[1].cpu() - cpu[1]).abs().max()):.3e}')
+    expect(float((card[1].cpu() - cpu[1]).abs().max()) < 1e-6,
+           'the primary rays on the card disagree with the CPU')
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device visible', file=sys.stderr)
@@ -1530,6 +2003,15 @@ def main():
     errs.update(tex_errs)
     m3_errs, m3_times, prepass_ms = metrics_kernel_phases()
     errs.update(m3_errs)
+    d4 = kt.utils.interop.deftet_scene(seed=SEED, side=D4_SIDE,
+                                       num_faces=D4_FACES)
+    d4_errs, d4_times = deftet_kernel_phases(d4)
+    errs.update(d4_errs)
+    spc5 = kt.utils.interop.sphere_shell_spc(level=C5_LEVEL, n=C5_N,
+                                             seed=SEED, radius=C5_RADIUS)
+    rays5 = kt.render.spc.generate_primary_rays(C5_RES, C5_RES, *C5_CAM)
+    c5_errs, c5_times = traverse_kernel_phases(spc5, rays5)
+    errs.update(c5_errs)
 
     launches, _ = main_path(scenes)
     for sc in scenes:
@@ -1570,6 +2052,10 @@ def main():
     log(f'[config3] the pruned prepass alone: {prepass_ms:.4f} ms, twice '
         f'per step: {2. * prepass_ms / m3_ms:.3f} of the step')
     launches['nearest_idx'] = mesh_fit_path()['nearest_idx']
+    d4_launches, d4_ms = deftet_path(d4)
+    launches['deftet_topk'] = d4_launches['deftet_topk']
+    c5_launches, c5_ms, hits5 = raytrace_path(spc5, rays5)
+    launches['traverse'] = c5_launches['traverse']
 
     check_against_cpu()
     check_textured_against_cpu()
@@ -1578,19 +2064,27 @@ def main():
     check_texture_fits()
     check_sign_phase()
     sdf_phase()
+    check_deftet_against_cpu()
+    check_tets_against_cpu()
+    check_pack_ops_against_cpu(hits5)
 
     main = scenes[0]
     rows = []
     for name, (source, replaces) in KERNELS.items():
-        t = tex_times.get(name) or m3_times.get(name) or dict(
-            times[main.name][name], library_ms=None,
-            shape=f'batch {main.batch}, {main.num_faces} faces, {H}x{W}')
+        t = (tex_times.get(name) or m3_times.get(name)
+             or d4_times.get(name) or c5_times.get(name) or dict(
+                 times[main.name][name], library_ms=None,
+                 shape=f'batch {main.batch}, {main.num_faces} faces, '
+                       f'{H}x{W}'))
         rows.append(dict(name=name, route='cuda', source=source,
-                         replaces=replaces, launches=launches[name],
+                         replaces=replaces,
+                         launches=launches[COUNTER_OF.get(name, name)],
                          max_abs_err=errs[name], ms=t['ms'],
                          plain_ms=t['plain_ms'], bound_ms=t['bound_ms'],
                          bound_by=t['bound_by'], library_ms=t['library_ms'],
                          shape=t['shape']))
+    expect(all(row['launches'] > 0 for row in rows),
+           'a kernel of the kernels line was launched on no path')
     log(f'total {time.perf_counter() - t0:.1f} s')
     log(json.dumps({'metric': 'dibr_512x512_fwd_bwd_ms_per_frame',
                     'value': per_frame[main.name], 'unit': 'ms/frame',
@@ -1601,6 +2095,12 @@ def main():
     log(card)
     log(json.dumps({'metric': 'chamfer100k_p2m10k', 'value': m3_ms,
                     'unit': 'ms/iter'}))
+    log(card)
+    log(json.dumps({'metric': 'deftet_64x64_10kfaces', 'value': d4_ms,
+                    'unit': 'ms/iter'}))
+    log(card)
+    log(json.dumps({'metric': 'spc_raytrace_256_L8', 'value': c5_ms,
+                    'unit': 'ms/trace'}))
     log(card)
     log(json.dumps({'kernels': rows}))
     log(json.dumps({'ok': True, 'device': {

@@ -12,6 +12,7 @@ from . import kernels
 from . import metrics
 from . import ops
 from . import render
+from . import rep
 from . import utils
 
 __version__ = '0.1.0'

@@ -31,7 +31,7 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / 'csrc'
 _BUILD_DIR = _PKG / '_build'
 SOURCES = ('rasterize', 'rasterize_bwd', 'soft_mask', 'grid_sample',
-           'nn_distance', 'p2m_distance')
+           'nn_distance', 'p2m_distance', 'deftet_topk', 'spc_traverse')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC')
 

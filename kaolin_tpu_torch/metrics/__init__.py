@@ -1,3 +1,4 @@
 from . import pointcloud
 from . import render
+from . import tetmesh
 from . import trianglemesh

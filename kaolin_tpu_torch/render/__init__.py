@@ -1,3 +1,4 @@
 from . import camera
 from . import lighting
 from . import mesh
+from . import spc

@@ -12,7 +12,9 @@ textured train step of ``bench_suite.py``'s config 2.
 ``pointclouds_from_numpy`` and ``mesh_from_numpy`` carry point clouds and
 meshes over; ``metrics_scene`` and ``metrics_step`` are config 3's
 point-cloud and mesh metrics step, ``ellipsoid_points`` and
-``mesh_fit_loss`` its mesh fit.
+``mesh_fit_loss`` its mesh fit. ``deftet_scene`` and ``deftet_loss`` are
+config 4's DefTet step; ``spc_from_numpy`` carries an SPC over and
+``sphere_shell_spc`` builds config 5's octree.
 """
 
 import math
@@ -22,6 +24,7 @@ import torch
 
 from .. import metrics, ops
 from ..ops.mesh.trianglemesh import _sample_from_uniforms
+from ..ops import spc as spc_ops
 from ..render import camera, mesh
 from ..render.mesh.utils import _clip
 
@@ -30,7 +33,8 @@ __all__ = ['icosphere', 'dibr_params_from_numpy', 'extrinsics_from_numpy',
            'textured_scene', 'textured_maps', 'textured_render',
            'textured_loss', 'pointclouds_from_numpy', 'mesh_from_numpy',
            'metrics_scene', 'metrics_step', 'ellipsoid_points',
-           'mesh_fit_loss']
+           'mesh_fit_loss', 'deftet_scene', 'deftet_loss', 'spc_from_numpy',
+           'sphere_shell_spc']
 
 
 def icosphere(subdiv=2):
@@ -272,3 +276,65 @@ def mesh_fit_loss(vertices, faces, target, num_samples, lap_weight,
         - vertices
     lap = (lap * lap).sum(dim=-1)
     return torch.mean(cham + p2m.mean(dim=-1) + lap_weight * lap.mean(dim=-1))
+
+
+def deftet_scene(seed=0, side=64, num_faces=10_000, feat_dim=2,
+                 dtype=torch.float32, device='cuda'):
+    """``bench_suite.py``'s config-4 inputs (batch 1): ``side`` x ``side``
+    pixel coords on ``linspace(-1, 1)``, render ranges [-1e10, 0], and
+    ``num_faces`` random faces -- z in [-2, -1), image coords in [-1, 1),
+    ``feat_dim`` features in [0, 1) per vertex -- drawn in that order from
+    ``default_rng(seed)`` in float64 and rounded to ``dtype``.
+
+    Returns (pixel_coords (1, P, 2), render_ranges (1, P, 2),
+    face_vertices_z (1, F, 3), face_vertices_image (1, F, 3, 2),
+    face_features (1, F, 3, feat_dim)) on ``device``.
+    """
+    rng = np.random.default_rng(seed)
+    ys, xs = np.meshgrid(np.linspace(-1, 1, side), np.linspace(-1, 1, side))
+    pc = np.stack([xs.ravel(), ys.ravel()], -1)[None]
+    rr = np.tile([[-1e10, 0.]], (side * side, 1))[None]
+    fvz = -1. - rng.random((1, num_faces, 3))
+    fvi = rng.uniform(-1, 1, (1, num_faces, 3, 2))
+    ff = rng.random((1, num_faces, 3, feat_dim))
+    return tuple(torch.tensor(a, dtype=dtype, device=device)
+                 for a in (pc, rr, fvz, fvi, ff))
+
+
+def deftet_loss(pixel_coords, render_ranges, face_vertices_z,
+                face_vertices_image, face_features, knum=30):
+    """Config 4's loss (``bench_suite.py:220-223``): the sum of the squared
+    features ``deftet_sparse_render`` interpolates."""
+    feat, _ = mesh.deftet_sparse_render(pixel_coords, render_ranges,
+                                        face_vertices_z, face_vertices_image,
+                                        face_features, knum=knum)
+    return torch.sum(feat ** 2)
+
+
+def spc_from_numpy(octree, point_hierarchy, pyramid, exsum, device='cuda'):
+    """An SPC from numpy arrays (or arrays numpy can read, such as
+    ``kaolin_tpu``'s) to the port's types: (octree uint8, point_hierarchy
+    int16, pyramid numpy int32, exsum int32) with the tensors on
+    ``device``."""
+    return (torch.tensor(np.asarray(octree), dtype=torch.uint8,
+                         device=device),
+            torch.tensor(np.asarray(point_hierarchy), dtype=torch.int16,
+                         device=device),
+            np.asarray(pyramid, dtype=np.int32),
+            torch.tensor(np.asarray(exsum), dtype=torch.int32, device=device))
+
+
+def sphere_shell_spc(level=8, n=200_000, seed=0, radius=0.7, device='cuda'):
+    """``bench_suite.py``'s config-5 octree: ``n`` points drawn from
+    ``default_rng(seed)`` uniformly on a sphere of ``radius``, rounded to
+    float32 and quantized at ``level``. Returns (octree, point_hierarchy,
+    pyramid, exsum) as :func:`spc_from_numpy` gives them, for one SPC."""
+    rng = np.random.default_rng(seed)
+    dirs = rng.normal(size=(n, 3))
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    pts = torch.tensor(dirs * radius, dtype=torch.float32)
+    octree = spc_ops.unbatched_points_to_octree(
+        spc_ops.quantize_points(pts, level), level)
+    _, pyramids, exsum = spc_ops.scan_octrees(octree, [octree.shape[0]])
+    ph = spc_ops.generate_points(octree, pyramids, exsum)
+    return spc_from_numpy(octree, ph, pyramids[0], exsum, device=device)

@@ -15,7 +15,9 @@ of itself plus 1e-4 of the median nonzero entry, and two launches give the
 same bits. The soft mask's cut agrees exactly. The grid-sample kernels
 repeat the plain versions' operations too: the samples and the coordinate
 gradients agree exactly; the texture gradient sums with atomics in no fixed
-order and agrees entry by entry as the other gradients do.
+order and agrees entry by entry as the other gradients do. The DefTet
+selection and the SPC traversal score and test as their plain versions do,
+so face ids, ray and point ids, counts and depths agree exactly.
 """
 
 import numpy as np
@@ -23,11 +25,13 @@ import pytest
 import torch
 
 import kaolin_tpu_torch as kt
+from kaolin_tpu_torch.kernels import deftet_topk as kd
 from kaolin_tpu_torch.kernels import nn_distance as kn
 from kaolin_tpu_torch.kernels import p2m_distance as kp
 from kaolin_tpu_torch.kernels import rasterize as kr
 from kaolin_tpu_torch.kernels import rasterize_bwd as krb
 from kaolin_tpu_torch.kernels import soft_mask as ks
+from kaolin_tpu_torch.kernels import spc_traverse as kst
 from kaolin_tpu_torch.kernels import texture as ktex
 from kaolin_tpu_torch.render.mesh.dibr import _scaled_inputs
 from kaolin_tpu_torch.render.mesh.rasterization import _kernel_inputs
@@ -365,3 +369,172 @@ def test_config3_fit_loss_on_card_matches_cpu(cuda):
     torch.testing.assert_close(lg.cpu(), lc, rtol=1e-5, atol=0)
     assert torch.isfinite(gg).all() and (gg != 0).any()
     _grad_close(gg.cpu(), gc)
+
+
+def _deftet_case(device, case):
+    """(pixel coords, ranges, z, image coords, valid mask, knum) of one
+    selection case, float32 on ``device``."""
+    pc, rr, fvz, fvi, _ = kt.utils.interop.deftet_scene(
+        seed=3, side=40, num_faces=1500, device=device)
+    valid = torch.ones(fvz.shape[:2], dtype=torch.bool, device=device)
+    knum = 30
+    if case == 'knum300':
+        knum = 300
+    elif case == 'ties':
+        fvz = torch.cat([fvz, fvz.flip(1)], dim=1)
+        fvi = torch.cat([fvi, fvi.flip(1)], dim=1)
+        valid = torch.ones(fvz.shape[:2], dtype=torch.bool, device=device)
+        knum = 7
+    elif case == 'valid':
+        g = torch.Generator(device).manual_seed(4)
+        valid = torch.rand(fvz.shape[:2], device=device, generator=g) > 0.4
+    elif case == 'few_faces':
+        fvz, fvi, valid = fvz[:, :20], fvi[:, :20], valid[:, :20]
+    elif case == 'signed_zero':
+        rr = torch.tensor([-1., 1.], device=device).expand_as(pc)
+        fvi = torch.tensor([[-3., -3.], [3., -3.], [0., 3.]],
+                           device=device).expand(1, 6, 3, 2)
+        fvz = torch.tensor([-0., 0., -0., 0., -0.5, 0.5],
+                           device=device)[None, :, None].expand(1, 6, 3)
+        valid = torch.ones((1, 6), dtype=torch.bool, device=device)
+        knum = 5
+    return pc, rr, fvz.contiguous(), fvi.contiguous(), valid, knum
+
+
+@pytest.mark.parametrize('case', ['random', 'knum300', 'ties', 'valid',
+                                  'few_faces', 'signed_zero'])
+def test_deftet_topk_kernel_matches_plain(cuda, case):
+    pc, rr, fvz, fvi, valid, knum = _deftet_case(cuda, case)
+    n = kd.deftet_topk.launches
+    out = kd.deftet_topk(pc, rr, fvz, fvi, valid, knum, 1e-8)
+    assert kd.deftet_topk.launches == n + 1
+    ref = kd.deftet_topk_plain(pc, rr, fvz, fvi, valid, knum, 1e-8)
+    assert torch.equal(out, ref)
+    assert int((out >= 0).sum()) > 0
+    if case == 'signed_zero':
+        assert (out.cpu() == torch.tensor([5, 1, 3, 0, 2],
+                                          dtype=torch.int32)).all()
+
+
+def test_deftet_step_on_card_matches_cpu(cuda):
+    """Config 4's loss and its gradients to the image coords and the
+    features (24x24 pixels, 600 faces): the selections agree exactly; the
+    gathers' backward adds with atomics on the card."""
+    def loss_and_grads(device):
+        pc, rr, fvz, fvi, ff = kt.utils.interop.deftet_scene(
+            seed=5, side=24, num_faces=600, device=device)
+        fvi.requires_grad_(True)
+        ff.requires_grad_(True)
+        loss = kt.utils.interop.deftet_loss(pc, rr, fvz, fvi, ff)
+        return (loss,) + torch.autograd.grad(loss, [fvi, ff])
+
+    n = kd.deftet_topk.launches
+    card, cpu = loss_and_grads(cuda), loss_and_grads('cpu')
+    assert kd.deftet_topk.launches == n + 1
+    torch.testing.assert_close(card[0].cpu(), cpu[0], rtol=1e-5, atol=0)
+    for g, ref in zip(card[1:], cpu[1:]):
+        assert torch.isfinite(g).all()
+        _grad_close(g.cpu(), ref)
+
+
+def _shell_spc(device, level=6):
+    return kt.utils.interop.sphere_shell_spc(level=level, n=30000,
+                                             device=device)
+
+
+def _rays(device, kind, n=4096, seed=6):
+    """Rays: 'random' from around the unit cube toward its middle;
+    'axis': along +-x/y/z with 0.0 and -0.0 components from dyadic
+    origins, some on cell planes; 'lattice': general directions from
+    origins on the level-6 cell planes (every coordinate a multiple of
+    2^-5), so rays start on and cross planes and edges."""
+    rng = np.random.default_rng(seed)
+    if kind == 'random':
+        o = rng.uniform(-1.5, 1.5, (n, 3))
+        d = rng.uniform(-0.5, 0.5, (n, 3)) - o
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    elif kind == 'axis':
+        axis = rng.integers(0, 3, n)
+        sign = rng.choice([-1., 1.], n)
+        d = np.where(rng.random((n, 3)) < 0.5, 0., -0.)
+        d[np.arange(n), axis] = sign
+        o = np.round(rng.uniform(-1, 1, (n, 3)) * 32.) / 32.
+        o[np.arange(n), axis] = -1.5 * sign
+    else:
+        o = np.round(rng.uniform(-1, 1, (n, 3)) * 32.) / 32.
+        d = rng.normal(size=(n, 3))
+        d[: n // 2, 0] = 0.
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return (torch.tensor(o, dtype=torch.float32, device=device),
+            torch.tensor(d, dtype=torch.float32, device=device))
+
+
+@pytest.mark.parametrize('level', [0, 1, 3, 6])
+@pytest.mark.parametrize('with_exit', [False, True])
+@pytest.mark.parametrize('kind', ['random', 'axis', 'lattice'])
+def test_spc_traverse_kernel_matches_plain(cuda, level, with_exit, kind):
+    octree, ph, _, exsum = _shell_spc(cuda)
+    o, d = _rays(cuda, kind)
+    n = kst.traverse.launches
+    out = kst.traverse(octree, exsum, ph, o, d, level, with_exit)
+    assert kst.traverse.launches == n + 1
+    ref = kst.traverse_plain(octree, exsum, ph, o, d, level, with_exit)
+    for a, b in zip(out[:3], ref[:3]):
+        assert torch.equal(a, b)
+    assert out[3] == ref[3] and out[4] == ref[4]
+    # lattice rays start inside the root cell, which level 0 does not count
+    assert (out[3] > 0) == (level > 0 or kind != 'lattice')
+
+
+def test_spc_traverse_cap_and_empty(cuda):
+    """A cap below the count (the prefix, -1 and 0 after it, the true
+    count), and rays that miss the octree (no nugget after level 0)."""
+    octree, ph, _, exsum = _shell_spc(cuda)
+    o, d = _rays(cuda, 'random')
+    full = kst.traverse(octree, exsum, ph, o, d, 6, True)
+    cap = full[3] // 2
+    out = kst.traverse(octree, exsum, ph, o, d, 6, True, cap=cap)
+    assert out[3] == full[3] and out[0].shape[0] == cap
+    for a, b in zip(out[:3], full[:3]):
+        assert torch.equal(a, b[:cap])
+    big = kst.traverse(octree, exsum, ph, o, d, 6, True, cap=full[3] + 50)
+    assert (big[0][full[3]:] == -1).all() and (big[2][full[3]:] == 0).all()
+    away = torch.ones_like(d)
+    miss = kst.traverse(octree, exsum, ph, o.abs() + 2., away, 6)
+    assert miss[3] == 0 and miss[0].shape[0] == 0 and miss[4] == [0] * 6
+
+
+def test_spc_traverse_rejects_bad_input(cuda):
+    octree, ph, _, exsum = _shell_spc(cuda, level=3)
+    o, d = _rays(cuda, 'random', n=64)
+    with pytest.raises(TypeError):
+        kst.traverse(octree, exsum, ph, o.double(), d.double(), 3)
+    with pytest.raises(TypeError):
+        kst.traverse(octree, exsum.long(), ph, o, d, 3)
+    with pytest.raises(ValueError):
+        kst.traverse(octree.cpu(), exsum, ph, o, d, 3)
+
+
+def test_raytrace_on_card_matches_cpu(cuda):
+    """``unbatched_raytrace`` of config 5's camera at 64x64 on a level-6
+    shell, on the card and on the CPU from the same rays (made on the CPU:
+    the card's ``tan`` may round the camera's constant otherwise, and this
+    on-axis grid has rays on cell edges), and the pack ops over its
+    hits."""
+    spc_c, spc_g = _shell_spc('cpu'), _shell_spc(cuda)
+    cam = ([0., 0., 2.5], [0., 0., 0.], [0., 1., 0.], np.pi / 3)
+    rays = kt.render.spc.generate_primary_rays(64, 64, *cam, device='cpu')
+    out = {}
+    for dev, (octree, ph, pyr, exsum) in (('cpu', spc_c), (cuda, spc_g)):
+        o, d = (r.to(dev) for r in rays)
+        ridx, pidx, depth = kt.render.spc.unbatched_raytrace(
+            octree, ph, pyr, exsum, o, d, 6, with_exit=True)
+        b = kt.render.spc.mark_pack_boundaries(ridx)
+        tau = depth[:, 1:] - depth[:, :1]
+        feats, trans = kt.render.spc.exponential_integration(
+            torch.ones_like(tau), tau, b)
+        out[str(dev)] = (ridx, pidx, depth, b, feats, trans)
+    for a, b in zip(out['cuda'][:4], out['cpu'][:4]):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(out['cuda'][4:], out['cpu'][4:]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6)

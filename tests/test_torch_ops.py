@@ -218,6 +218,13 @@ def test_port_sources_import_no_jax():
     files = sorted((ROOT / 'kaolin_tpu_torch').rglob('*.py'))
     files.append(ROOT / 'chip_smoke.py')
     assert len(files) > 15
+    rel = {str(f.relative_to(ROOT)) for f in files}
+    for mod in ('kernels/deftet_topk', 'kernels/spc_traverse',
+                'render/mesh/deftet', 'render/spc/raytrace',
+                'metrics/tetmesh', 'ops/mesh/tetmesh',
+                'ops/conversions/tetmesh', 'ops/spc/uint8', 'ops/spc/points',
+                'ops/spc/spc', 'rep/spc'):
+        assert f'kaolin_tpu_torch/{mod}.py' in rel, mod
     for path in files:
         for mod in _imports(path):
             top = mod.split('.')[0]
@@ -248,14 +255,15 @@ def _c_entry_points():
 def test_ctypes_signatures_match_sources():
     """Each wrapper's ctypes argument types are those of its C entry
     point, so a launch passes every pointer whole and in its place."""
-    from kaolin_tpu_torch.kernels import (nn_distance, p2m_distance,
-                                          rasterize, rasterize_bwd,
-                                          soft_mask, texture)
+    from kaolin_tpu_torch.kernels import (deftet_topk, nn_distance,
+                                          p2m_distance, rasterize,
+                                          rasterize_bwd, soft_mask,
+                                          spc_traverse, texture)
     entry = _c_entry_points()
     seen = 0
     for mod in (rasterize, rasterize_bwd, soft_mask, texture, nn_distance,
-                p2m_distance):
+                p2m_distance, deftet_topk, spc_traverse):
         for name, argtypes in mod._SIGNATURES.items():
             assert entry[name] == argtypes, name
             seen += 1
-    assert seen == len(entry) == 10
+    assert seen == len(entry) == 13
