@@ -38,6 +38,16 @@ ran in it:
   origin and direction arrays), timed as ``spc_raytrace_256_L8``; its first
   hits are held against the analytic sphere.
 
+The grid-sample forward and ``p2m_select`` are also timed by the card
+alone (``torch.profiler``'s device time, beside the CUDA-event time that
+includes the host), with ``F.grid_sample`` beside the former.
+``p2m_select`` is held against its plain version on config 3, on config 3
+with the mesh listed twice (every distance tied), on points 0-2 ulps off
+the planes of a 10,000-face mesh, on a flat 10,000-face mesh (one plane:
+its cull skips nothing) and at the mesh fit's first step (5,120 faces);
+it is timed on the last two and config 3, each with the share of pairs
+its plane cull skipped and its bound.
+
 It then checks the render, the gradient, the textured step and config 3's
 fit loss against the plain versions on the CPU on small inputs, fits a
 sphere's silhouette to an ellipsoid's with Adam (batch 1, 256x256,
@@ -61,6 +71,12 @@ Output: the card line from ``nvidia-smi``, one line per check, a JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``. Any
 failed check raises and the script exits non-zero without the last line.
 It exits non-zero at once when no CUDA card is visible.
+
+``python3 chip_smoke.py --compare LABEL`` instead times only
+``grid_sample``, ``F.grid_sample``, ``p2m_select`` on its three scenes and
+the textured and config 3 steps (see ``compare``), through phase functions
+that call nothing older checkouts lack: copy the script into a parent's
+checkout to time it there.
 """
 
 import json
@@ -178,6 +194,9 @@ OPS_NN_PAIR = 9
 # subtractions: 11), the distance (3 subtractions and a dot: 8), the NaN
 # test and the compare (2)
 OPS_P2M_PAIR = 9 + 15 + 3 + 15 + 12 + 11 + 8 + 2
+# a test of a point against a face's plane: dot(p, un) - dot(v1, un), the
+# latter once a face (3 products, 3 sums), the square and the compare
+OPS_P2M_PLANE = 3 + 3 + 2
 # DefTet selection: 4 compares per (pixel, face) pair for the bbox test;
 # for a pair inside the bbox, 6 subtractions to the pixel, 3 edge
 # functions (2 mul, 1 sub each), the normalisation (2 add, the sign and
@@ -210,8 +229,8 @@ TOL_CPU = 1e-5
 # orders); a face whose sum is wrong fails however large the largest is
 GRAD_TOL = 1e-4
 # grid sample, kernel vs plain version on the card: the same operations in
-# the same order without fused multiply-adds, so the samples and the
-# coordinate gradients are expected bit-equal (held to TOL_SAMPLE and to
+# the same order without fused multiply-adds, so the samples are held
+# bit-equal, and the coordinate gradients are expected bit-equal (held to
 # GRAD_TOL entry by entry). The texture gradient adds each texel's terms
 # with float32 atomics in no fixed order (as the plain version's
 # scatter_add_ does), and a texel may take 10^5 terms (the background
@@ -219,7 +238,6 @@ GRAD_TOL = 1e-4
 # the plain version in float64, every entry within GRAD_TOL * (|ref| +
 # median nonzero |ref|) plus TOL_ATOMIC times the sum of its terms'
 # magnitudes
-TOL_SAMPLE = 1e-6
 TOL_ATOMIC = 1e-6
 
 KERNELS = {
@@ -749,10 +767,12 @@ def grid_sample_checks(label, maps, ix, iy, cots, errs):
         ref = ktex.grid_sample_plain(maps, ix, iy, mode)
         torch.cuda.synchronize()
         e = max_err(out, ref)
-        log(f'[{label}] grid_sample {mode}: max err {e:.3e} (tolerance '
-            f'{TOL_SAMPLE:g}), bit-equal {bool(torch.equal(out, ref))}')
-        expect(e <= TOL_SAMPLE, f'[{label}] grid_sample {mode} disagrees '
-               'with its plain version')
+        again = ktex.grid_sample(maps, ix, iy, mode)
+        same = bool(torch.equal(out, ref)) and bool(torch.equal(out, again))
+        log(f'[{label}] grid_sample {mode}: max err {e:.3e}, bit-equal to '
+            f'the plain version and between two launches {same}')
+        expect(same, f'[{label}] grid_sample {mode} is not bit-equal to its '
+               'plain version')
         errs['grid_sample'] = max(errs['grid_sample'], e)
         for cot_name, cot in cots:
             tag = f'[{label}] grid_sample_backward {mode} {cot_name} cotangent'
@@ -839,14 +859,8 @@ def texture_phases(tsc):
     grid_sample_checks('64x64 random coords', small, *rand_coords(64, 64),
                        (('random', rand_cot),), errs)
 
-    # the library's yardstick: the same points as a normalised grid
-    grid = torch.stack([(2. * ix + 1.) / tw - 1., (2. * iy + 1.) / th - 1.],
-                       -1)[:, None]
+    lib_fwd, grid = library_grid_sample(tex, ix, iy)
     cot_lib = cot.transpose(1, 2).reshape(B, C, 1, P).contiguous()
-
-    def lib_fwd():
-        return F.grid_sample(tex, grid, 'bilinear', 'border',
-                             align_corners=False)
 
     def lib_bwd():
         return torch.ops.aten.grid_sampler_2d_backward(
@@ -858,19 +872,18 @@ def texture_phases(tsc):
         f'{e_lib:.3e}')
     shape = (f'texture {B}x{C}x{th}x{tw} at {B}x{P} points (config 2 '
              f'step, {tsc.num_faces} faces, {H}x{W})')
-    times = {}
-    for name, fn, plain, lib, backward in (
-            ('grid_sample', lambda: ktex.grid_sample(tex, ix, iy),
-             lambda: ktex.grid_sample_plain(tex, ix, iy), lib_fwd, False),
-            ('grid_sample_backward',
-             lambda: ktex.grid_sample_backward(tex, ix, iy, cot),
-             lambda: ktex.grid_sample_backward_plain(tex, ix, iy, cot),
-             lib_bwd, True)):
-        bnd = grid_sample_bound(tex, P, backward)
-        times[name] = dict(ms=time_ms(fn, TIME_ITERS),
-                           plain_ms=time_ms(plain, 3),
-                           library_ms=time_ms(lib, TIME_ITERS),
-                           bound_ms=bnd[0], bound_by=bnd[1], shape=shape)
+    times = {'grid_sample': dict(
+        sampler_times('[textured]', tex, ix, iy),
+        plain_ms=time_ms(lambda: ktex.grid_sample_plain(tex, ix, iy), 3))}
+    times['grid_sample_backward'] = dict(
+        ms=time_ms(lambda: ktex.grid_sample_backward(tex, ix, iy, cot),
+                   TIME_ITERS),
+        plain_ms=time_ms(lambda: ktex.grid_sample_backward_plain(
+            tex, ix, iy, cot), 3),
+        library_ms=time_ms(lib_bwd, TIME_ITERS))
+    for name in times:
+        bnd = grid_sample_bound(tex, P, name == 'grid_sample_backward')
+        times[name].update(bound_ms=bnd[0], bound_by=bnd[1], shape=shape)
         log(f'[textured] time {name} (the step\'s cotangent): '
             + json.dumps(times[name]))
     rand_ms = time_ms(lambda: ktex.grid_sample_backward(tex, ix, iy,
@@ -878,6 +891,33 @@ def texture_phases(tsc):
     log(f'[textured] time grid_sample_backward with a random cotangent, '
         f'nonzero on the background too: {rand_ms:.4f} ms')
     return errs, times
+
+
+def library_grid_sample(tex, ix, iy):
+    """The library's yardstick for the grid sampler: ``F.grid_sample`` of
+    the same points as a normalised grid. Returns (call, grid)."""
+    th, tw = tex.shape[2:]
+    grid = torch.stack([(2. * ix + 1.) / tw - 1., (2. * iy + 1.) / th - 1.],
+                       -1)[:, None]
+
+    def call():
+        return F.grid_sample(tex, grid, 'bilinear', 'border',
+                             align_corners=False)
+    return call, grid
+
+
+def sampler_times(label, tex, ix, iy):
+    """``grid_sample`` and ``F.grid_sample`` on the same points, each timed
+    with CUDA events and by the card alone: dict(ms, device_ms, library_ms,
+    library_device_ms)."""
+    lib, _ = library_grid_sample(tex, ix, iy)
+
+    def fn():
+        return ktex.grid_sample(tex, ix, iy)
+    return dict(ms=time_ms(fn, TIME_ITERS),
+                device_ms=device_ms(f'{label} grid_sample', fn),
+                library_ms=time_ms(lib, TIME_ITERS),
+                library_device_ms=device_ms(f'{label} F.grid_sample', lib))
 
 
 def reset_counters():
@@ -978,9 +1018,46 @@ def textured_path(tsc):
     return launches
 
 
-def profile_calls(label, fn, per_call_ms, iters=10):
+def textured_step_ms(tsc):
+    """Config 2's textured step, ms per step over TRAIN_STEPS chained
+    steps after a warm-up."""
+    ms = time_ms(lambda: tsc.train(TRAIN_STEPS), 1) / TRAIN_STEPS
+    log(f'[textured] train step: {ms:.4f} ms per step, '
+        f'{ms / tsc.batch:.4f} ms/frame (batch {tsc.batch}, '
+        f'{tsc.num_faces} faces, {H}x{W}, {TEX_SIZE}x{TEX_SIZE} texture, '
+        f'{TRAIN_STEPS} chained steps)')
+    return ms
+
+
+def device_ms(label, fn, iters=TIME_ITERS):
+    """The card's own time of one call of ``fn``: ``torch.profiler``'s
+    device time of every kernel it launches, summed, over ``iters`` calls
+    after a warm-up. ``None`` (not measured) if the trace holds no device
+    time."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    per = {e.key: e.self_device_time_total / 1e3 / iters
+           for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.self_device_time_total > 0}
+    if not per:
+        log(f'{label}: no device time in the trace; not measured')
+        return None
+    total = sum(per.values())
+    log(f'{label}: device time {total:.4f} ms per call ('
+        + ', '.join(f'{k[:40]} {v:.4f}' for k, v in per.items()) + ')')
+    return total
+
+
+def profile_calls(label, fn, per_call_ms, iters=10, watch=()):
     """Device time of ``fn`` by kernel (``torch.profiler``), and the share
-    of the call's time the card is idle."""
+    of the call's time the card is idle. Kernels whose names hold one of
+    ``watch`` are logged beside the 12 largest."""
     warmup = 2
     traces = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -1005,9 +1082,10 @@ def profile_calls(label, fn, per_call_ms, iters=10):
     log(f'{label}: device busy {busy_ms:.4f} ms of {per_call_ms:.4f} ms per '
         f'call, idle share {1. - busy_ms / per_call_ms:.3f}, '
         f'{len(kernels)} kernels')
-    for e in kernels[:12]:
-        log(f'    {e.self_device_time_total / 1e3 / iters:.4f} ms in '
-            f'{e.count / iters:g} launches: {e.key[:70]}')
+    for i, e in enumerate(kernels):
+        if i < 12 or any(w in e.key for w in watch):
+            log(f'    {e.self_device_time_total / 1e3 / iters:.4f} ms in '
+                f'{e.count / iters:g} launches: {e.key[:70]}')
 
 
 def check_against_cpu():
@@ -1251,19 +1329,107 @@ def nn_checks(label, p1, p2, errs):
 
 
 def p2m_checks(label, points, fv, errs):
+    """``p2m_select`` against its plain version on every point, and two
+    launches against each other; returns the plain version's result."""
     idx, types = kp.p2m_select(points, fv)
+    again = kp.p2m_select(points, fv)
     ridx, rtypes = kp.p2m_select_plain(points, fv)
     torch.cuda.synchronize()
     mi, mt = int((idx != ridx).sum()), int((types != rtypes).sum())
+    same = bool(torch.equal(idx, again[0]) and torch.equal(types, again[1]))
     err = float((p2m_dist(points, fv, idx)
                  - p2m_dist(points, fv, ridx)).abs().max())
     log(f'[{label}] p2m_select, {points.shape[1]} points x {fv.shape[1]} '
         f'faces: face mismatches {mi}, type mismatches {mt}, largest type '
         f'{int(types.max())}, largest difference of the chosen distances '
-        f'{err}')
-    expect(mi == 0 and mt == 0, f'[{label}] p2m_select disagrees with its '
-           'plain version')
+        f'{err}; two launches bit-identical {same}')
+    expect(mi == 0 and mt == 0 and same, f'[{label}] p2m_select disagrees '
+           'with its plain version or with itself')
     errs['p2m_select'] = max(errs['p2m_select'], err)
+    return ridx, rtypes
+
+
+def p2m_scored(label, points, fv):
+    """The number of (point, face) pairs ``p2m_select``'s scan evaluated in
+    full, the rest skipped by its plane cull; logged with the share."""
+    scored = torch.zeros(1, dtype=torch.int64, device='cuda')
+    kp.select_cuda(points, fv, scored=scored)
+    n_pairs = points.shape[0] * points.shape[1] * fv.shape[1]
+    log(f'[{label}] p2m cull: {int(scored)} of {n_pairs} pairs evaluated in '
+        f'full, {1. - int(scored) / n_pairs:.4f} skipped')
+    return int(scored)
+
+
+def p2m_bound(points, fv, idx, rows=8192):
+    """(bound ms, 'bytes' or 'operations', pairs in full) of one
+    ``p2m_select`` call, from its inputs and the plain version's winners
+    ``idx``: the plane test on every pair, and the full evaluation of each
+    pair whose face's plane lies no farther from the point than its
+    winner (float64), which no test by planes can rule out."""
+    best = p2m_dist(points, fv, idx)
+    f64 = fv.double()
+    v1 = f64[..., 0, :]
+    n = torch.cross(f64[..., 1, :] - v1, f64[..., 2, :] - v1, dim=-1)
+    un = n / n.norm(dim=-1, keepdim=True)
+    off = (v1 * un).sum(-1)
+    kept = 0
+    for i in range(0, points.shape[1], rows):
+        s = points[:, i:i + rows].double() @ un.transpose(1, 2) - off[:, None]
+        kept += int((s * s <= best[:, i:i + rows, None]).sum())
+    B, N, F = points.shape[0], points.shape[1], fv.shape[1]
+    nbytes = 4 * B * (3 * N + 9 * F + 2 * N)
+    return bound(nbytes, B * N * F * OPS_P2M_PLANE
+                 + kept * OPS_P2M_PAIR) + (kept,)
+
+
+def flat_mesh():
+    """M3_FACES faces, a 50 x 100 grid of split quads over the unit square
+    in the plane z = 0.5: every face shares one plane, so the plane cull
+    skips no pair, the scan's worst case. (1, M3_FACES, 3, 3) on the
+    card."""
+    nx, ny = 100, M3_FACES // 200
+    g = np.mgrid[0:ny + 1, 0:nx + 1].reshape(2, -1).T
+    verts = np.concatenate([g[:, 1:] / nx, g[:, :1] / ny,
+                            np.full((len(g), 1), 0.5)], 1).astype(np.float32)
+    quads = np.array([[i * (nx + 1) + j, i * (nx + 1) + j + 1,
+                       (i + 1) * (nx + 1) + j, (i + 1) * (nx + 1) + j + 1]
+                      for i in range(ny) for j in range(nx)])
+    faces = np.concatenate([quads[:, [0, 1, 2]], quads[:, [1, 3, 2]]])
+    return torch.tensor(verts[faces][None], device='cuda')
+
+
+def p2m_scenes():
+    """The timed ``p2m_select`` scenes, (name, points, face vertices):
+    config 3 (random triangles), config 3's points against the flat mesh,
+    and the mesh fit's first step (its FIT3_N target points against the
+    unit icosphere of subdivision FIT3_SUBDIV)."""
+    p1, _, fv = kt.utils.interop.metrics_scene(SEED, M3_N, M3_N, M3_FACES)
+    gen = torch.Generator('cuda').manual_seed(SEED)
+    target = kt.utils.interop.ellipsoid_points(FIT3_N, FIT3_TARGET_SUBDIV,
+                                               FIT_SCALE, generator=gen)
+    verts, faces = kt.utils.interop.mesh_from_numpy(
+        *kt.utils.interop.icosphere(FIT3_SUBDIV))
+    return [('config3', p1, fv), ('flat mesh', p1, flat_mesh()),
+            ('mesh fit', target, verts[faces.long()][None].contiguous())]
+
+
+def p2m_times(label, scenes):
+    """``p2m_select`` on each scene, equal to its plain version, timed with
+    CUDA events and by the card alone: {scene: dict(ms, device_ms)}."""
+    out = {}
+    for name, points, fv in scenes:
+        got, ref = kp.p2m_select(points, fv), kp.p2m_select_plain(points, fv)
+        expect(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+               f'[{label}] p2m_select disagrees with its plain version on '
+               f'the {name} scene')
+
+        def fn():
+            return kp.p2m_select(points, fv)
+        out[name] = dict(ms=time_ms(fn, TIME_ITERS), device_ms=device_ms(
+            f'[{label}] p2m_select, {name}', fn))
+        log(f'[{label}] time p2m_select, {name} ({points.shape[1]} points x '
+            f'{fv.shape[1]} faces): ' + json.dumps(out[name]))
+    return out
 
 
 def grid_mesh_points():
@@ -1320,8 +1486,23 @@ def metrics_kernel_phases():
     dup = torch.cat([half, half.flip(1)], dim=1)
     nn_checks('exact duplicates', torch.cat([p1[:, :M3_N // 2], half], 1),
               dup, errs)
-    p2m_checks('config3', p1, fv, errs)
+    ref = p2m_checks('config3', p1, fv, errs)
+    p2m_checks('config3 mesh doubled', p1, torch.cat([fv, fv], dim=1), errs)
+    p2m_checks('points 0-2 ulps off the planes',
+               *kt.utils.interop.near_plane_scene(SEED, M3_N, M3_FACES),
+               errs)
     p2m_checks('grid mesh ties', *grid_mesh_points(), errs)
+    scenes = p2m_scenes()
+    scored, bounds = {}, {}
+    for name, points, faces in scenes:
+        ridx = ref[0] if name == 'config3' else p2m_checks(name, points,
+                                                           faces, errs)[0]
+        scored[name] = p2m_scored(name, points, faces)
+        bounds[name] = p2m_bound(points, faces, ridx)
+        log(f'[{name}] p2m_select bound {bounds[name][0]:.4f} ms by '
+            f'{bounds[name][1]} ({bounds[name][2]} pairs whose plane lies '
+            'within the winner\'s distance)')
+    scene_times = p2m_times('config3', scenes)
 
     lib = cdist_argmin(p1, p2)
     e_lib = int((lib.to(torch.int32) != kn.nearest_idx(p1, p2)).sum())
@@ -1356,12 +1537,12 @@ def metrics_kernel_phases():
     log(f'[config3] time of the pruned prepass alone: {prepass_ms:.4f} ms, '
         f'{prepass_ms / times["nearest_idx_pruned"]["ms"]:.3f} of '
         'nearest_idx_pruned')
-    bnd = bound(4 * (3 * M3_N + 9 * M3_FACES + 2 * M3_N),
-                M3_N * M3_FACES * OPS_P2M_PAIR)
+    bnd = bounds['config3']
     times['p2m_select'] = dict(
-        ms=time_ms(lambda: kp.p2m_select(p1, fv), TIME_ITERS),
+        scene_times['config3'],
         plain_ms=time_ms(lambda: kp.p2m_select_plain(p1, fv), 1),
         library_ms=None, bound_ms=bnd[0], bound_by=bnd[1],
+        cull_skipped=1. - scored['config3'] / (M3_N * M3_FACES),
         shape=f'1 x {M3_N} points x {M3_FACES} faces (config 3)')
     log('[config3] time p2m_select: ' + json.dumps(times['p2m_select']))
     return errs, times, prepass_ms
@@ -1974,10 +2155,38 @@ def check_pack_ops_against_cpu(hits):
            'the primary rays on the card disagree with the CPU')
 
 
+def compare(label):
+    """``--compare LABEL``: the timings that set two checkouts side by side,
+    through the phase functions above, which call only what every revision
+    of the port since config 3 has: ``sampler_times`` at config 2's step,
+    the textured step, ``p2m_times`` on ``p2m_scenes`` and the config 3
+    step (``metrics_path``). Prints one JSON line per measurement tagged
+    ``label``. Copy this script into another checkout's root to time that
+    checkout; compare two checkouts in turns (a, b, b, a) on one machine,
+    since two machines may hold different cards."""
+    card = card_line()
+    log(card)
+
+    def report(name, values):
+        log(json.dumps({'tree': label, 'name': name, **values}))
+
+    tsc = TexturedScene(TEX_BATCH, TEX_SUBDIV, TEX_SIZE, H, W, 'cuda')
+    tex, ix, iy, _ = tsc.sampler_inputs()
+    report('grid_sample', sampler_times(f'[{label}]', tex, ix, iy))
+    report('textured_step', {'ms': textured_step_ms(tsc)})
+    for name, t in p2m_times(label, p2m_scenes()).items():
+        report(f'p2m_select, {name}', t)
+    report('config3_step', {'ms': metrics_path()[1]})
+    log(card)
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device visible', file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ['--compare']:
+        return compare(sys.argv[2] if len(sys.argv) > 2 else 'this tree')
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2039,12 +2248,10 @@ def main():
     tex_launches = textured_path(tsc)
     for name in ('grid_sample', 'grid_sample_backward'):
         launches[name] = tex_launches[name]
-    ms = time_ms(lambda: tsc.train(TRAIN_STEPS), 1) / TRAIN_STEPS
+    ms = textured_step_ms(tsc)
     tex_per_frame = ms / tsc.batch
-    log(f'[textured] train step: {ms:.4f} ms per step, {tex_per_frame:.4f} '
-        f'ms/frame (batch {tsc.batch}, {tsc.num_faces} faces, {H}x{W}, '
-        f'{TEX_SIZE}x{TEX_SIZE} texture, {TRAIN_STEPS} chained steps)')
-    profile_calls('[textured] profile train step', lambda: tsc.train(1), ms)
+    profile_calls('[textured] profile train step', lambda: tsc.train(1), ms,
+                  watch=('interleave_kernel', 'grid_sample_fwd_kernel'))
 
     m3_launches, m3_ms = metrics_path()
     for name in ('nearest_idx_pruned', 'p2m_select'):
@@ -2082,7 +2289,9 @@ def main():
                          max_abs_err=errs[name], ms=t['ms'],
                          plain_ms=t['plain_ms'], bound_ms=t['bound_ms'],
                          bound_by=t['bound_by'], library_ms=t['library_ms'],
-                         shape=t['shape']))
+                         shape=t['shape'],
+                         **{k: t[k] for k in ('device_ms', 'library_device_ms',
+                                              'cull_skipped') if k in t}))
     expect(all(row['launches'] > 0 for row in rows),
            'a kernel of the kernels line was launched on no path')
     log(f'total {time.perf_counter() - t0:.1f} s')

@@ -18,6 +18,17 @@
 // as well, which changes nothing on such inputs and keeps every read and
 // write inside the buffers whatever the caller passes.
 //
+// Forward: the texture arrives planar, (B, C, H, W), so a tap's C channels
+// lie a plane apart and a bilinear point would make 4 x C scattered
+// 4-byte reads. A first kernel therefore interleaves the texture into a
+// scratch (B, H, W, C4) copy, C4 = C rounded up to a multiple of 4 and the
+// padding zeroed, one thread per texel (planar reads and 16-byte writes,
+// both coalesced). The sampler then reads each tap's channels as C4 / 4
+// 16-byte loads: 4 loads a point at C = 3 instead of 12. The texture
+// changes at every step of a fit, so the copy is made at every call, on
+// the same stream, inside one entry point. No hardware texture filtering:
+// its 8-bit fixed-point weights would break the bit-equality below.
+//
 // Backward: per point, the coordinate gradients
 //   dix = sum_c g_c * ((v01 - v00)*(1-wy) + (v11 - v10)*wy)
 //   diy = sum_c g_c * ((v10 - v00)*(1-wx) + (v11 - v01)*wx)
@@ -33,9 +44,10 @@
 // element.
 //
 // What bounds it on an H100: bytes. Forward: ix, iy (8 bytes per point) in,
-// C floats per point out, the texture read once (it fits in the 50 MB L2).
-// Backward: also the cotangent in, dix, diy and dtex out. The arithmetic is
-// under 20 operations per point and channel.
+// C floats per point out, the texture read once (it fits in the 50 MB L2);
+// the interleaved copy adds one more read of the texture and a write of
+// C4 floats a texel. Backward: also the cotangent in, dix, diy and dtex
+// out. The arithmetic is under 20 operations per point and channel.
 //
 // Arithmetic follows the plain PyTorch version
 // (kaolin_tpu_torch/kernels/texture.py) operation for operation:
@@ -49,9 +61,12 @@
 namespace {
 
 constexpr int THREADS = 256;
+// points per thread of the sampler; 1, 2 and 4 took the same time within
+// 5% at config 2's step on the H100 (PERF.md)
+constexpr int PTS = 2;
 
 struct Taps {
-  size_t i00, i01, i10, i11;  // texel offsets inside one channel plane
+  size_t i00, i01, i10, i11;  // texel offsets y * W + x
   float wx, wy;
 };
 
@@ -82,33 +97,84 @@ __device__ __forceinline__ size_t nearest_tap(float x, float y, int H,
   return (size_t)yn * W + xn;
 }
 
-// maps (B, C, H, W); ix, iy (B, P); out (B, P, C)
+// maps (B, C, H, W) -> tex (B, H, W, C4), channels past C zeroed; one
+// thread per texel
 __global__ void __launch_bounds__(THREADS)
-grid_sample_fwd_kernel(const float* __restrict__ maps,
+interleave_kernel(const float* __restrict__ maps, float4* __restrict__ tex,
+                  int B, int C, int HW, int G) {
+  const size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= (size_t)B * HW) return;
+  const size_t b = i / HW, t = i - b * HW;
+  const float* m = maps + b * C * HW + t;
+  float4* o = tex + i * G;
+  for (int g = 0; g < G; ++g) {
+    float v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int c = 4 * g + k;
+      v[k] = c < C ? __ldg(m + (size_t)c * HW) : 0.f;
+    }
+    o[g] = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// v00*(1-wy)*(1-wx) + v01*(1-wy)*wx + v10*wy*(1-wx) + v11*wy*wx, in the
+// plain version's order
+__device__ __forceinline__ float lerp4(float v00, float v01, float v10,
+                                       float v11, float ax, float ay,
+                                       float wx, float wy) {
+  return v00 * ay * ax + v01 * ay * wx + v10 * wy * ax + v11 * wy * wx;
+}
+
+__device__ __forceinline__ void store_group(float* o, int g, int C,
+                                            float4 r) {
+  const float v[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int k = 0; k < 4 && 4 * g + k < C; ++k) o[4 * g + k] = v[k];
+}
+
+// tex (B, H, W, C4) interleaved; ix, iy (B, P); out (B, P, C). A thread
+// samples PTS points THREADS apart, their coordinates loaded first, so
+// that more loads are in flight per thread.
+__global__ void __launch_bounds__(THREADS)
+grid_sample_fwd_kernel(const float4* __restrict__ tex,
                        const float* __restrict__ ix,
                        const float* __restrict__ iy,
                        float* __restrict__ out, int B, int C, int H, int W,
-                       int P, int nearest) {
-  const size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= (size_t)B * P) return;
-  const int b = (int)(i / P);
-  const size_t plane = (size_t)H * W;
-  const float* tex = maps + (size_t)b * C * plane;
-  float* o = out + i * C;
-  const float x = ix[i], y = iy[i];
-  if (nearest) {
-    const size_t k = nearest_tap(x, y, H, W);
-    for (int c = 0; c < C; ++c) o[c] = __ldg(tex + c * plane + k);
-    return;
+                       int P, int G, int nearest) {
+  const size_t first = (size_t)blockIdx.x * THREADS * PTS + threadIdx.x;
+  const size_t total = (size_t)B * P;
+  float x[PTS], y[PTS];
+#pragma unroll
+  for (int j = 0; j < PTS; ++j) {
+    const size_t i = first + (size_t)j * THREADS;
+    x[j] = i < total ? ix[i] : 0.f;
+    y[j] = i < total ? iy[i] : 0.f;
   }
-  const Taps t = bilinear_taps(x, y, H, W);
-  const float ax = 1.f - t.wx, ay = 1.f - t.wy;
-  for (int c = 0; c < C; ++c) {
-    const float* tc = tex + c * plane;
-    const float v00 = __ldg(tc + t.i00), v01 = __ldg(tc + t.i01);
-    const float v10 = __ldg(tc + t.i10), v11 = __ldg(tc + t.i11);
-    o[c] = v00 * ay * ax + v01 * ay * t.wx + v10 * t.wy * ax
-           + v11 * t.wy * t.wx;
+#pragma unroll
+  for (int j = 0; j < PTS; ++j) {
+    const size_t i = first + (size_t)j * THREADS;
+    if (i >= total) break;
+    const float4* t4 = tex + (i / P) * H * W * G;
+    float* o = out + i * C;
+    if (nearest) {
+      const float4* k = t4 + nearest_tap(x[j], y[j], H, W) * G;
+      for (int g = 0; g < G; ++g) store_group(o, g, C, __ldg(k + g));
+      continue;
+    }
+    const Taps t = bilinear_taps(x[j], y[j], H, W);
+    const float ax = 1.f - t.wx, ay = 1.f - t.wy;
+    for (int g = 0; g < G; ++g) {
+      const float4 v00 = __ldg(t4 + t.i00 * G + g);
+      const float4 v01 = __ldg(t4 + t.i01 * G + g);
+      const float4 v10 = __ldg(t4 + t.i10 * G + g);
+      const float4 v11 = __ldg(t4 + t.i11 * G + g);
+      store_group(o, g, C, make_float4(
+          lerp4(v00.x, v01.x, v10.x, v11.x, ax, ay, t.wx, t.wy),
+          lerp4(v00.y, v01.y, v10.y, v11.y, ax, ay, t.wx, t.wy),
+          lerp4(v00.z, v01.z, v10.z, v11.z, ax, ay, t.wx, t.wy),
+          lerp4(v00.w, v01.w, v10.w, v11.w, ax, ay, t.wx, t.wy)));
+    }
   }
 }
 
@@ -168,16 +234,23 @@ int blocks_for(int B, int P) {
 
 extern "C" {
 
-// out (B, P, C), every entry written.
+// tex (B, H, W, C4) float scratch, C4 = C rounded up to a multiple of 4;
+// out (B, P, C), every entry written. Two launches on the stream: the
+// interleaved copy, then the sampler.
 int grid_sample_forward(const float* maps, const float* ix, const float* iy,
-                        float* out, int B, int C, int H, int W, int P,
-                        int nearest, int device, void* stream) {
+                        float* tex, float* out, int B, int C, int H, int W,
+                        int P, int nearest, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || P == 0 || C == 0) return (int)cudaGetLastError();
-  grid_sample_fwd_kernel<<<blocks_for(B, P), THREADS, 0,
-                           (cudaStream_t)stream>>>(maps, ix, iy, out, B, C,
-                                                   H, W, P, nearest);
+  const int G = (C + 3) / 4;
+  const cudaStream_t s = (cudaStream_t)stream;
+  interleave_kernel<<<blocks_for(B, H * W), THREADS, 0, s>>>(
+      maps, (float4*)tex, B, C, H * W, G);
+  const size_t per_block = (size_t)THREADS * PTS;
+  grid_sample_fwd_kernel<<<(unsigned)(((size_t)B * P + per_block - 1)
+                                      / per_block), THREADS, 0, s>>>(
+      (const float4*)tex, ix, iy, out, B, C, H, W, P, G, nearest);
   return (int)cudaGetLastError();
 }
 

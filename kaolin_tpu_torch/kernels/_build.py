@@ -25,7 +25,10 @@ from pathlib import Path
 import torch
 
 __all__ = ['SOURCES', 'build_all', 'load', 'launch', 'cuda_inputs',
-           'check_shapes', 'pixel_scale']
+           'stream', 'check_shapes', 'check_backend', 'pixel_scale']
+
+# the backend values of kaolin_tpu's kernel-backed functions
+BACKENDS = ('auto', 'xla', 'pallas', 'pallas_interpret')
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / 'csrc'
@@ -138,9 +141,14 @@ def cuda_inputs(fn, floats, ints=()):
         if t.dtype != torch.int32:
             raise TypeError(f'{fn}: the CUDA kernel takes int32 indices, '
                             f'got {t.dtype}')
-    stream = torch.cuda.current_stream(device).cuda_stream
     return ([t.contiguous() for t in floats], [t.contiguous() for t in ints],
-            device.index, stream)
+            device.index, stream(device))
+
+
+def stream(device):
+    """The handle of PyTorch's current stream on a CUDA ``device``, without
+    building a ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check_shapes(fn, *pairs):
@@ -150,6 +158,15 @@ def check_shapes(fn, *pairs):
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f'{fn}: expected shape {tuple(shape)}, got '
                              f'{tuple(t.shape)}')
+
+
+def check_backend(fn, value, accepted=BACKENDS):
+    """Raises ``ValueError`` unless ``value`` is one of the backends that
+    ``kaolin_tpu``'s ``fn`` takes. The port takes the keyword for that
+    package's signature only: the route follows the inputs' device."""
+    if value not in accepted:
+        raise ValueError(f'{fn}: unknown backend {value!r}; expected one of '
+                         f'{accepted}')
 
 
 def pixel_scale(multiplier, size):

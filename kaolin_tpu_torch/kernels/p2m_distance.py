@@ -1,5 +1,5 @@
-"""Point-to-mesh closest face and distance type: the CUDA kernel of
-``csrc/p2m_distance.cu`` and its plain PyTorch version.
+"""Point-to-mesh closest face and distance type: the CUDA kernels of
+``csrc/p2m_distance.cu`` and their plain PyTorch version.
 
 Port of ``kaolin_tpu/kernels/p2m_distance.py``: ``p2m_select`` replaces
 ``p2m_select_pallas``. The wrapper follows its inputs: on CUDA tensors it
@@ -11,6 +11,15 @@ operation and takes float32 or float64. The kernel repeats the plain
 version in turn, so face indices and types agree exactly, ties included
 (the Pallas kernel's reciprocal products agree with XLA only up to float
 ties). Any number of faces is taken.
+
+On the card one call launches three kernels: one forms each face's
+constants once into a scratch record, one scans the faces (a register tile
+of points per thread, the faces split across blocks and merged with 64-bit
+``atomicMin`` keys, pairs skipped whose plane lies farther than the running
+best, the rest evaluated in their own lanes where a whole warp needs them,
+else 32 at a time from a queue per warp), and one writes the winners and
+their types. The source derives why the skips
+change nothing.
 """
 
 import ctypes
@@ -27,7 +36,7 @@ _PLAIN_BUDGET = 1 << 22
 _FACE_CHUNK = 256
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {'p2m_select_forward': [_P] * 4 + [_I] * 4 + [_P]}
+_SIGNATURES = {'p2m_select_forward': [_P] * 6 + [_I] * 3 + [_P, _I, _P]}
 
 
 def _dot(a, b):
@@ -142,16 +151,29 @@ def p2m_select(points, face_vertices):
                          f'{tuple(face_vertices.shape)}')
     if not _is_cuda(points):
         return p2m_select_plain(points, face_vertices)
-    (p, fv), _, dev, stream = _build.cuda_inputs('p2m_select',
-                                                 (points, face_vertices))
-    B, N, _ = p.shape
-    idx = torch.empty((B, N), dtype=torch.int32, device=p.device)
-    types = torch.empty((B, N), dtype=torch.int32, device=p.device)
-    _build.launch(_lib(), 'p2m_select_forward', p.data_ptr(), fv.data_ptr(),
-                  idx.data_ptr(), types.data_ptr(), B, N, fv.shape[1], dev,
-                  stream)
+    idx, types = select_cuda(points, face_vertices)
     p2m_select.launches += 1
     return idx, types
 
 
 p2m_select.launches = 0
+
+
+def select_cuda(points, face_vertices, scored=None):
+    """The CUDA kernels of :func:`p2m_select` on checked CUDA inputs, not
+    counted in its launches. ``scored``, a zeroed (1,) int64 tensor on the
+    card, gains the number of (point, face) pairs evaluated in full (the
+    rest the plane cull skipped)."""
+    (p, fv), _, dev, stream = _build.cuda_inputs('p2m_select',
+                                                 (points, face_vertices))
+    B, N, _ = p.shape
+    F = fv.shape[1]
+    rec = torch.empty((B, F, 36), dtype=torch.float32, device=p.device)
+    keys = torch.empty((B, N), dtype=torch.int64, device=p.device)
+    idx = torch.empty((B, N), dtype=torch.int32, device=p.device)
+    types = torch.empty((B, N), dtype=torch.int32, device=p.device)
+    _build.launch(_lib(), 'p2m_select_forward', p.data_ptr(), fv.data_ptr(),
+                  rec.data_ptr(), keys.data_ptr(), idx.data_ptr(),
+                  types.data_ptr(), B, N, F,
+                  None if scored is None else scored.data_ptr(), dev, stream)
+    return idx, types

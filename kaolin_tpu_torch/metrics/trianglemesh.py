@@ -12,6 +12,7 @@ with atomics in no fixed order).
 
 import torch
 
+from ..kernels import _build
 from ..kernels.p2m_distance import _cross, _dot, _unit_normal, p2m_select
 from ..ops.mesh.mesh import uniform_laplacian
 from ..ops.mesh.trianglemesh import average_edge_length
@@ -23,12 +24,16 @@ __all__ = [
 ]
 
 
-def point_to_mesh_distance(pointclouds, face_vertices):
+def point_to_mesh_distance(pointclouds, face_vertices, backend='auto'):
     """Squared distance from each point to the nearest triangle of a mesh.
 
     Args:
         pointclouds: (batch_size, num_points, 3).
         face_vertices: (batch_size, num_faces, 3, 3).
+        backend: ``kaolin_tpu``'s choice of route, 'auto', 'xla', 'pallas'
+            or 'pallas_interpret'; checked, and otherwise unused: the
+            inputs' device picks the route ('pallas' forces nothing on the
+            CPU).
 
     Returns:
         (distance (B, N), face_idx (B, N) int32, dist_type (B, N) int32):
@@ -37,6 +42,7 @@ def point_to_mesh_distance(pointclouds, face_vertices):
         face's plane as in the JAX package. The distance is differentiable
         with respect to both inputs through the fixed assignment.
     """
+    _build.check_backend('point_to_mesh_distance', backend)
     with torch.no_grad():
         idx, types = p2m_select(pointclouds.detach(), face_vertices.detach())
     sel = torch.gather(face_vertices, 1, idx.long()[..., None, None]

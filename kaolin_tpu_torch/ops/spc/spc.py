@@ -107,16 +107,19 @@ def generate_points(octrees, pyramids, exsum):
     """
     octrees_np = _host(octrees)
     pyramids_np = _host(pyramids)
-    max_level = pyramids_np.shape[2] - 2
     out = []
     start = 0
     for b in range(pyramids_np.shape[0]):
-        osize = int(pyramids_np[b, 1, max_level])  # bytes = nodes thru L-1
+        # octree b's own depth: scan_octrees leaves the counts of the
+        # levels below a shallower octree at 0, and every level of an
+        # octree holds a node
+        level = int(np.count_nonzero(pyramids_np[b, 0])) - 1
+        osize = int(pyramids_np[b, 1, level])  # bytes = nodes thru level-1
         octree = octrees_np[start:start + osize]
         start += osize
         mortons = [np.zeros(1, dtype=np.int64)]
         byte_off = 0
-        for l in range(max_level):
+        for l in range(level):
             n_l = int(pyramids_np[b, 0, l])
             bytes_l = octree[byte_off:byte_off + n_l]
             byte_off += n_l

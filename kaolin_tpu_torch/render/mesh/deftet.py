@@ -12,6 +12,7 @@ the card the backward of the gathers adds with atomics.
 
 import torch
 
+from ...kernels import _build
 from ...kernels.deftet_topk import deftet_topk
 
 __all__ = ['deftet_sparse_render']
@@ -28,9 +29,25 @@ def _select_topk(pixel_coords, render_ranges, face_vertices_z,
                            int(knum), float(eps))
 
 
+class _NoFaces(torch.autograd.Function):
+    """The features of no faces: zeros of ``shape`` and zero gradients to
+    ``inputs`` (those the interpolation differentiates)."""
+
+    @staticmethod
+    def forward(ctx, shape, *inputs):
+        ctx.shapes = [(x.shape, x.dtype, x.device) for x in inputs]
+        return inputs[-1].new_zeros(shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (None,) + tuple(torch.zeros(s, dtype=t, device=d)
+                               for s, t, d in ctx.shapes)
+
+
 def deftet_sparse_render(pixel_coords, render_ranges, face_vertices_z,
                          face_vertices_image, face_features, knum=300,
-                         valid_faces=None, eps=1e-8, tie_exact=False):
+                         valid_faces=None, eps=1e-8, tie_exact=False,
+                         backend=None):
     r"""Renders all ray-face intersections per pixel sorted by depth.
 
     Reference: ``kaolin/render/mesh/deftet.py:338`` (the top-``knum``-by-
@@ -51,11 +68,18 @@ def deftet_sparse_render(pixel_coords, render_ranges, face_vertices_z,
         tie_exact (bool): accepted for ``kaolin_tpu``'s signature; the
             port's selection always takes ``lax.top_k``'s lowest-id rule
             on tied depths.
+        backend: ``kaolin_tpu``'s choice of route, None, 'xla', 'pallas'
+            or 'pallas_interpret'; checked, and otherwise unused: the
+            inputs' device picks the route ('pallas' forces nothing on the
+            CPU).
 
     Returns:
         (interpolated_features (B, P, knum, feat_dim) -- or a tuple -- and
-        face_idx (B, P, knum) int32, -1 for empty slots).
+        face_idx (B, P, knum) int32, -1 for empty slots). With no faces,
+        every slot is empty, the features 0 and no kernel is launched.
     """
+    _build.check_backend('deftet_sparse_render', backend,
+                         (None, 'xla', 'pallas', 'pallas_interpret'))
     is_multi = isinstance(face_features, (list, tuple))
     _face_features = torch.cat(list(face_features), dim=-1) if is_multi \
         else face_features
@@ -67,6 +91,13 @@ def deftet_sparse_render(pixel_coords, render_ranges, face_vertices_z,
                                 device=pixel_coords.device)
     else:
         valid_mask = valid_faces.to(torch.bool)
+
+    if F == 0:
+        sel = torch.full((B, P, int(knum)), -1, dtype=torch.int32,
+                         device=pixel_coords.device)
+        out = _NoFaces.apply((B, P, int(knum), D), pixel_coords,
+                             face_vertices_image, _face_features)
+        return _split(out, face_features, is_multi), sel
 
     sel = _select_topk(pixel_coords, render_ranges, face_vertices_z,
                        face_vertices_image, valid_mask, knum, eps)
@@ -100,12 +131,16 @@ def deftet_sparse_render(pixel_coords, render_ranges, face_vertices_z,
     out = torch.sum(feat * weights[..., None], dim=-2)
     out = torch.where(covered[..., None], out, torch.zeros((), dtype=out.dtype,
                                                            device=out.device))
+    return _split(out, face_features, is_multi), sel
 
-    if is_multi:
-        outs = []
-        cur = 0
-        for f in face_features:
-            outs.append(out[..., cur:cur + f.shape[-1]])
-            cur += f.shape[-1]
-        out = tuple(outs)
-    return out, sel
+
+def _split(out, face_features, is_multi):
+    """``out`` split back into the widths of a list of features."""
+    if not is_multi:
+        return out
+    outs = []
+    cur = 0
+    for f in face_features:
+        outs.append(out[..., cur:cur + f.shape[-1]])
+        cur += f.shape[-1]
+    return tuple(outs)

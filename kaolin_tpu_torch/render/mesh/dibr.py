@@ -17,6 +17,7 @@ its scaled inputs.
 import torch
 from torch.autograd.function import once_differentiable
 
+from ...kernels import _build
 from ...kernels.soft_mask import soft_mask_backward, soft_mask_forward
 from .rasterization import rasterize
 
@@ -41,7 +42,11 @@ class _DibrSoftMask(torch.autograd.Function):
                 boxlen, knum, multiplier, row_start, total_height):
         img_scaled, bboxes = _scaled_inputs(face_vertices_image, boxlen,
                                             multiplier)
-        _, H, W = selected_face_idx.shape
+        B, H, W = selected_face_idx.shape
+        ctx.shape = face_vertices_image.shape
+        if face_vertices_image.shape[1] == 0:
+            # no face: every pixel uncovered, with no bbox hit
+            return face_vertices_image.new_zeros((B, H, W))
         face_idx = selected_face_idx.to(torch.int32)
         kw = dict(row_start=row_start, height=H, width=W,
                   total_height=total_height, sigmainv=sigmainv,
@@ -53,12 +58,13 @@ class _DibrSoftMask(torch.autograd.Function):
                                       return_cut=True, **kw)
         ctx.save_for_backward(img_scaled, bboxes, cut, mask)
         ctx.kw = kw
-        ctx.shape = face_vertices_image.shape
         return mask
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_soft_mask):
+        if ctx.shape[1] == 0:
+            return (grad_soft_mask.new_zeros(ctx.shape),) + (None,) * 7
         grad = soft_mask_backward(*ctx.saved_tensors,
                                   grad_soft_mask.contiguous(), **ctx.kw)
         return (grad.reshape(ctx.shape),) + (None,) * 7
@@ -66,14 +72,14 @@ class _DibrSoftMask(torch.autograd.Function):
 
 def dibr_soft_mask(face_vertices_image, selected_face_idx, sigmainv=7000,
                    boxlen=0.02, knum=30, multiplier=1000., row_start=0,
-                   total_height=None, knum_exact=False):
+                   total_height=None, backend='auto', knum_exact=False):
     r"""Soft silhouette mask for DIB-R silhouette losses.
 
     Per uncovered pixel, the first ``knum`` faces (in face order) whose bbox
     enlarged by ``boxlen`` contains the pixel contribute
     ``p = exp(-sigmainv * d^2 / m^2)`` with ``d^2`` the min of 6 squared
     pixel-face distances; the mask is ``1 - prod(1 - p)``. Covered pixels
-    are 1.
+    are 1. With no faces the mask is 0 and no kernel is launched.
 
     Args:
         face_vertices_image: (B, F, 3, 2) image-plane verts in [-1, 1].
@@ -81,6 +87,10 @@ def dibr_soft_mask(face_vertices_image, selected_face_idx, sigmainv=7000,
         sigmainv, boxlen, knum, multiplier: as in the reference.
         row_start, total_height: the rows of a taller image, as in
             :func:`rasterize`.
+        backend: ``kaolin_tpu``'s choice of route, 'auto', 'xla', 'pallas'
+            or 'pallas_interpret'; checked, and otherwise unused: the
+            inputs' device picks the route ('pallas' forces nothing on the
+            CPU).
         knum_exact (bool): accepted for the JAX package's signature; the
             port is always order-exact.
 
@@ -88,6 +98,7 @@ def dibr_soft_mask(face_vertices_image, selected_face_idx, sigmainv=7000,
         (B, H, W) soft mask.
     """
     del knum_exact
+    _build.check_backend('dibr_soft_mask', backend)
     if total_height is None:
         total_height = selected_face_idx.shape[1]
     return _DibrSoftMask.apply(
@@ -99,20 +110,25 @@ def dibr_soft_mask(face_vertices_image, selected_face_idx, sigmainv=7000,
 def dibr_rasterization(height, width, face_vertices_z, face_vertices_image,
                        face_features, face_normals_z, sigmainv=7000,
                        boxlen=0.02, knum=30, multiplier=None, eps=None,
-                       row_start=0, total_height=None, knum_exact=False):
+                       rast_backend='auto', row_start=0, total_height=None,
+                       mask_backend='auto', knum_exact=False):
     r"""Full DIB-R pipeline: rasterize (with normal-z face culling) plus the
     soft silhouette mask.
+
+    ``rast_backend`` and ``mask_backend`` are the ``backend`` of
+    :func:`rasterize` and :func:`dibr_soft_mask`: checked, and otherwise
+    unused, since the inputs' device picks the route.
 
     Returns:
         (interpolated_features, soft_mask, face_idx).
     """
     interpolated_features, face_idx = rasterize(
         height, width, face_vertices_z, face_vertices_image, face_features,
-        face_normals_z >= 0., multiplier, eps, row_start=row_start,
-        total_height=total_height)
+        face_normals_z >= 0., multiplier, eps, rast_backend,
+        row_start=row_start, total_height=total_height)
     _multiplier = 1000. if multiplier is None else multiplier
     soft_mask = dibr_soft_mask(face_vertices_image, face_idx, sigmainv,
                                boxlen, knum, _multiplier,
                                row_start=row_start, total_height=total_height,
-                               knum_exact=knum_exact)
+                               backend=mask_backend, knum_exact=knum_exact)
     return interpolated_features, soft_mask, face_idx

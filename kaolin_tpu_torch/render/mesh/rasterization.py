@@ -18,6 +18,7 @@ the gradients of the image verts and the features; as in the JAX package,
 import torch
 from torch.autograd.function import once_differentiable
 
+from ...kernels import _build
 from ...kernels import rasterize as _k
 from ...kernels.rasterize_bwd import rasterize_backward
 # the pixel-centre and barycentric helpers live beside the plain versions
@@ -50,10 +51,19 @@ def _rasterize_forward(height, width, multiplier, eps, total_height,
     """Returns (features (B,H,W,D), face_idx (B,H,W) int32, weights
     (B,H,W,3)) for rows ``row_start ..`` of a ``total_height`` image."""
     B, F = face_vertices_image.shape[:2]
+    feat_dim = face_features.shape[-1]
+    if F == 0:
+        # the empty render, as the JAX package gives it (its gathers clamp
+        # an index into no faces; PyTorch's raise), and no kernel launch
+        dev, dtype = face_vertices_image.device, face_vertices_image.dtype
+        return (torch.zeros((B, height, width, feat_dim), dtype=dtype,
+                            device=dev),
+                torch.full((B, height, width), -1, dtype=torch.int32,
+                           device=dev),
+                torch.zeros((B, height, width, 3), dtype=dtype, device=dev))
     fz, img_flat, bboxes = _kernel_inputs(face_vertices_z,
                                           face_vertices_image, valid_faces,
                                           multiplier)
-    feat_dim = face_features.shape[-1]
     feats_flat = face_features.reshape(B, F, 3 * feat_dim)
     kw = dict(height=height, width=width, total_height=total_height,
               multiplier=multiplier, eps=eps)
@@ -90,6 +100,9 @@ class _Rasterize(torch.autograd.Function):
             ctx.saved_tensors
         B, F = face_vertices_image.shape[:2]
         D = face_features.shape[-1]
+        if F == 0:
+            return (None, torch.zeros_like(face_vertices_image),
+                    torch.zeros_like(face_features)) + (None,) * 7
         grad_img, grad_feat = rasterize_backward(
             grad_features.contiguous(), face_idx, weights,
             face_vertices_image.reshape(B, F, 6),
@@ -101,13 +114,14 @@ class _Rasterize(torch.autograd.Function):
 
 def rasterize(height, width, face_vertices_z, face_vertices_image,
               face_features, valid_faces=None, multiplier=None, eps=None,
-              row_start=0, total_height=None):
+              backend='auto', row_start=0, total_height=None):
     r"""Rasterization of triangle meshes with per-vertex-per-face features
     into feature images.
 
     The device of the inputs picks the route: CUDA tensors run the CUDA
     kernel (float32 only), CPU tensors the plain version (float32 or
-    float64).
+    float64). With no faces it returns the empty render and launches
+    nothing.
 
     Args:
         height, width (int): output image size.
@@ -120,6 +134,10 @@ def rasterize(height, width, face_vertices_z, face_vertices_image,
         valid_faces: optional (batch_size, num_faces) bool mask.
         multiplier (float): coordinate scaling for numerics. Default 1000.
         eps (float): barycentric normalization epsilon. Default 1e-8.
+        backend: ``kaolin_tpu``'s choice of route, 'auto', 'xla', 'pallas'
+            or 'pallas_interpret'; checked, and otherwise unused: the
+            inputs' device picks the route ('pallas' forces nothing on the
+            CPU).
         row_start, total_height (int): render rows ``row_start ..
             row_start + height`` of a ``total_height`` x ``width`` image.
 
@@ -128,6 +146,7 @@ def rasterize(height, width, face_vertices_z, face_vertices_image,
         ``face_features`` was a list — and face_idx (B, H, W) int32,
         -1 where uncovered).
     """
+    _build.check_backend('rasterize', backend)
     if multiplier is None:
         multiplier = 1000
     if eps is None:

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from .. import camera
 from ... import ops
+from ...kernels import _build
 from ...kernels.texture import grid_sample_coords
 
 __all__ = ['texture_mapping', 'spherical_harmonic_lighting',
@@ -55,7 +56,7 @@ def _sample(input_maps, x, y, mode):
         input_maps, *_sampler_coords(x, y, *input_maps.shape[2:]), mode)
 
 
-def grid_sample_2d(input_maps, grid, mode='bilinear'):
+def grid_sample_2d(input_maps, grid, mode='bilinear', backend='auto'):
     """2D grid sampling, matching ``torch.nn.functional.grid_sample`` with
     ``align_corners=False`` and ``padding_mode='border'``.
 
@@ -63,10 +64,15 @@ def grid_sample_2d(input_maps, grid, mode='bilinear'):
         input_maps: (batch_size, channels, h_in, w_in).
         grid: (batch_size, h_out, w_out, 2) coords in [-1, 1] (x, y).
         mode: 'bilinear' or 'nearest'.
+        backend: ``kaolin_tpu``'s choice of route, 'auto', 'xla', 'pallas'
+            or 'pallas_interpret'; checked, and otherwise unused: the
+            inputs' device picks the route ('pallas' forces nothing on the
+            CPU).
 
     Returns:
         (batch_size, channels, h_out, w_out).
     """
+    _build.check_backend('grid_sample_2d', backend)
     out = _sample(input_maps, grid[..., 0], grid[..., 1], mode)
     return out.transpose(1, 2).reshape(input_maps.shape[:2]
                                        + grid.shape[1:-1])

@@ -20,6 +20,7 @@ import warnings
 import numpy as np
 import torch
 
+from ...kernels import _build
 from ...kernels.spc_traverse import VOXEL_ORDER, traverse
 from ...ops.spc.uint8 import POPCOUNT8
 
@@ -41,6 +42,9 @@ __all__ = [
     'primary_rays_fn_cols',
     'generate_shadow_rays',
 ]
+
+# the backend values of kaolin_tpu's traces
+_TRAVERSALS = ('auto', 'xla', 'banded')
 
 
 def level_offsets_from_octree(octree):
@@ -69,7 +73,8 @@ def _rays(origin, direction, ray_fn):
 def unbatched_raytrace_fixed(octree, point_hierarchy, exsum, origin,
                              direction, level, cap, with_exit=False,
                              cap_schedule=None, return_level_counts=False,
-                             ray_fn=None, level_offsets=None):
+                             ray_fn=None, level_offsets=None, backend='auto',
+                             banded_raw_rows=None):
     """SPC ray trace into buffers of ``cap`` rows.
 
     Args:
@@ -80,12 +85,16 @@ def unbatched_raytrace_fixed(octree, point_hierarchy, exsum, origin,
         level (int): target octree level.
         cap (int): rows of the outputs, at least ``num_rays``.
         with_exit: also compute exit depths.
-        cap_schedule, level_offsets: accepted for ``kaolin_tpu``'s
-            signature; each level's buffers are sized from its total.
+        cap_schedule, level_offsets, banded_raw_rows: accepted for
+            ``kaolin_tpu``'s signature; each level's buffers are sized from
+            its total.
         return_level_counts: also return the hits at each level.
         ray_fn: optional ``ray_fn(ridx) -> (origin rows, direction rows)``
             that reproduces the arrays bit for bit (e.g.
             :func:`primary_rays_fn`); called once for every ray.
+        backend: ``kaolin_tpu``'s choice of traversal, 'auto', 'xla' or
+            'banded'; checked, and otherwise unused: the inputs' device
+            picks the route ('banded' forces nothing on the CPU).
 
     Returns:
         (ray_index (cap,) int32, point_index (cap,) int32, depth (cap, 1
@@ -93,6 +102,7 @@ def unbatched_raytrace_fixed(octree, point_hierarchy, exsum, origin,
         exceed ``cap``[, level_counts (level,) int32]); entries past
         ``min(count, cap)`` hold index -1 and depth 0.
     """
+    _build.check_backend('unbatched_raytrace_fixed', backend, _TRAVERSALS)
     num_rays = origin.shape[0]
     assert num_rays <= cap, (num_rays, cap)
     o, d = _rays(origin, direction, ray_fn)
@@ -129,17 +139,21 @@ def plan_raytrace(octree, point_hierarchy, exsum, origin, direction,
 
 def unbatched_raytrace(octree, point_hierarchy, pyramid, exsum, origin,
                        direction, level, return_depth=True, with_exit=False,
-                       max_nuggets=None):
+                       max_nuggets=None, backend='auto'):
     """Ray-traces an unbatched SPC, returning every hit.
 
     Behavior matches ``kaolin.render.spc.unbatched_raytrace``: hits
     sorted by ray, then near to far. ``max_nuggets`` is accepted for the
-    reference's signature; the buffers always fit the hits.
+    reference's signature; the buffers always fit the hits. ``backend`` is
+    ``kaolin_tpu``'s choice of traversal ('auto', 'xla' or 'banded'):
+    checked, and otherwise unused, since the inputs' device picks the
+    route.
 
     Returns:
         (ray_index (N,) int32, point_index (N,) int32[, depth (N, 1 or
         2)]).
     """
+    _build.check_backend('unbatched_raytrace', backend, _TRAVERSALS)
     ridx, pidx, depth, _, _ = traverse(octree, exsum, point_hierarchy,
                                        origin, direction, int(level),
                                        bool(with_exit))

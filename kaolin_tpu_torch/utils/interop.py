@@ -32,9 +32,9 @@ __all__ = ['icosphere', 'dibr_params_from_numpy', 'extrinsics_from_numpy',
            'intrinsics_from_numpy', 'texture_from_numpy', 'scene',
            'textured_scene', 'textured_maps', 'textured_render',
            'textured_loss', 'pointclouds_from_numpy', 'mesh_from_numpy',
-           'metrics_scene', 'metrics_step', 'ellipsoid_points',
-           'mesh_fit_loss', 'deftet_scene', 'deftet_loss', 'spc_from_numpy',
-           'sphere_shell_spc']
+           'metrics_scene', 'near_plane_scene', 'metrics_step',
+           'ellipsoid_points', 'mesh_fit_loss', 'deftet_scene', 'deftet_loss',
+           'spc_from_numpy', 'sphere_shell_spc']
 
 
 def icosphere(subdiv=2):
@@ -234,6 +234,32 @@ def metrics_scene(seed=0, n1=100_000, n2=100_000, num_faces=10_000,
               rng.random((1, num_faces, 3, 3)))
     return tuple(torch.tensor(a, dtype=torch.float32, device=device)
                  for a in arrays)
+
+
+def near_plane_scene(seed=0, num_points=100_000, num_faces=10_000,
+                     device='cuda'):
+    """Points on and near the planes of a triangle soup, the adversarial
+    scene of ``p2m_select``'s plane cull: ``num_faces`` faces in [0, 1) as
+    :func:`metrics_scene` draws them, and ``num_points`` points, each on a
+    random face at a random barycentric position (formed in float64,
+    rounded to float32), then moved 0, 1 or 2 ulps along or against the
+    face's normal, coordinate by coordinate. Returns (points (1, N, 3),
+    face_vertices (1, F, 3, 3)), float32 on ``device``."""
+    rng = np.random.default_rng(seed)
+    fv = rng.random((num_faces, 3, 3))
+    face = rng.integers(0, num_faces, num_points)
+    w = rng.dirichlet((1., 1., 1.), num_points)
+    pts = np.einsum('nk,nkc->nc', w, fv[face]).astype(np.float32)
+    tri = fv[face]
+    side = np.sign(np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]))
+    steps = rng.integers(-2, 3, num_points)
+    toward = np.where(np.sign(steps)[:, None] * side > 0, np.inf,
+                      -np.inf).astype(np.float32)
+    for k in range(2):
+        move = np.abs(steps) > k
+        pts[move] = np.nextafter(pts[move], toward[move])
+    return (torch.tensor(pts[None], device=device),
+            torch.tensor(fv[None], dtype=torch.float32, device=device))
 
 
 def metrics_step(p, p2, fv):

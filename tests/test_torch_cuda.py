@@ -98,6 +98,40 @@ def test_cuda_rejects_float64(cuda):
         kt.render.mesh.rasterize(16, 16, fvz, fvi, ff)
 
 
+def test_no_faces_on_card(cuda):
+    """No faces: ``rasterize`` (D = 2 and 40), ``dibr_rasterization`` and
+    ``deftet_sparse_render`` give the empty render and zero gradients, and
+    launch no kernel."""
+    counters = (kr.rasterize_interp, kr.rasterize_select,
+                ks.soft_mask_forward, krb.rasterize_backward,
+                ks.soft_mask_backward, kd.deftet_topk)
+    before = [c.launches for c in counters]
+    fvz = torch.zeros(2, 0, 3, device=cuda)
+    fvi = torch.zeros(2, 0, 3, 2, device=cuda, requires_grad=True)
+    for dim in (2, 40):
+        ff = torch.zeros(2, 0, 3, dim, device=cuda, requires_grad=True)
+        feat, idx = kt.render.mesh.rasterize(8, 8, fvz, fvi, ff)
+        assert feat.shape == (2, 8, 8, dim) and not feat.any()
+        assert idx.shape == (2, 8, 8) and (idx == -1).all()
+        gv, gf = torch.autograd.grad(feat.sum(), [fvi, ff])
+        assert gv.shape == fvi.shape and gf.shape == ff.shape
+    ff = torch.zeros(2, 0, 3, 2, device=cuda, requires_grad=True)
+    feat, mask, idx = kt.render.mesh.dibr_rasterization(
+        8, 8, fvz, fvi, ff, torch.zeros(2, 0, device=cuda))
+    assert not feat.any() and not mask.any() and (idx == -1).all()
+    gv, = torch.autograd.grad(feat.sum() + mask.sum(), [fvi])
+    assert gv.shape == fvi.shape
+    pc = torch.rand(2, 16, 2, device=cuda, requires_grad=True)
+    rr = torch.tensor([-1e10, 0.], device=cuda).expand(2, 16, 2)
+    feat, sel = kt.render.mesh.deftet_sparse_render(pc, rr, fvz, fvi, ff,
+                                                    knum=3)
+    assert feat.shape == (2, 16, 3, 2) and not feat.any()
+    assert sel.shape == (2, 16, 3) and (sel == -1).all()
+    gp, = torch.autograd.grad(feat.sum(), [pc])
+    assert not gp.any()
+    assert [c.launches for c in counters] == before
+
+
 def test_render_on_card_matches_cpu(cuda):
     verts, faces, rot, trans, proj = kt.utils.interop.scene(2, 2,
                                                             device=cuda)
@@ -230,6 +264,25 @@ def test_grid_sample_kernels_match_plain(cuda, shape, mode):
     _grad_close(again[0], rmaps)
 
 
+@pytest.mark.parametrize('shape', [(1, 16, 24), (2, 16, 24), (4, 16, 24),
+                                   (5, 16, 24), (3, 1, 24), (3, 16, 1),
+                                   (5, 1, 1), (40, 16, 24)])
+@pytest.mark.parametrize('mode', ['bilinear', 'nearest'])
+def test_grid_sample_forward_channels_and_edges(cuda, shape, mode):
+    """The interleaved texture's padding to 4 channels (C = 1 to 5), H or
+    W = 1, coordinates on the clip bounds and on texel centres, and C = 40
+    (ten 16-byte loads a tap): equal to the plain version, and the same
+    bits at every launch."""
+    C, H, W = shape
+    B, P = 3, 2000
+    maps = torch.randn(B, C, H, W, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(5))
+    ix, iy = _sampler_coords(cuda, B, P, H, W, 6)
+    out = ktex.grid_sample(maps, ix, iy, mode)
+    assert torch.equal(out, ktex.grid_sample_plain(maps, ix, iy, mode))
+    assert torch.equal(out, ktex.grid_sample(maps, ix, iy, mode))
+
+
 def test_grid_sample_rejects_bad_input(cuda):
     maps = torch.rand(1, 3, 8, 8, device=cuda)
     ix = torch.zeros(1, 4, device=cuda)
@@ -337,6 +390,73 @@ def test_p2m_select_kernel_matches_plain(cuda, case):
     assert torch.equal(idx, ridx) and torch.equal(types, rtypes)
     if case == 'grid':
         assert int(types.max()) > 6
+
+
+def _p2m_case(device, case):
+    if case == 'ragged':        # N, F multiples of no tile, chunk or split
+        return _clouds(device, 9, (2, 1001, 3), (2, 203, 3, 3))
+    if case == 'one_face':
+        return _clouds(device, 10, (2, 777, 3), (2, 1, 3, 3))
+    if case == 'batch':         # a different mesh in each batch entry
+        return _clouds(device, 11, (3, 1500, 3), (3, 333, 3, 3))
+    if case == 'doubled':       # every distance ties; the lower id wins
+        pts, fv = _clouds(device, 12, (1, 2000, 3), (1, 300, 3, 3))
+        return pts, torch.cat([fv, fv], dim=1)
+    if case == 'grid':
+        return _grid_mesh_points(device)
+    if case == 'all_degenerate':    # every distance inf: face 0, type 0
+        pts, fv = _clouds(device, 13, (2, 900, 3), (2, 150, 3, 3))
+        return pts, fv[:, :, :1].expand(-1, -1, 3, -1).contiguous()
+    if case == 'degenerate':
+        pts, fv = _clouds(device, 8, (2, 3000, 3), (2, 700, 3, 3))
+        fv[0, 5] = fv[0, 5, :1]                 # a point
+        fv[1, 9, 2] = fv[1, 9, 0] * 0.5 + fv[1, 9, 1] * 0.5  # a segment
+        return pts, fv
+    # points 0-2 ulps off the faces' planes, on both sides: the cull's
+    # margin
+    return kt.utils.interop.near_plane_scene(14, 4000, 500, device=device)
+
+
+P2M_CASES = ['ragged', 'one_face', 'batch', 'doubled', 'grid',
+             'all_degenerate', 'degenerate', 'near_plane']
+
+
+@pytest.mark.parametrize('case', P2M_CASES)
+def test_p2m_select_scenes_match_plain(cuda, case):
+    """The scan's edge cases give the plain version's faces and types, and
+    the same bits at every launch."""
+    pts, fv = _p2m_case(cuda, case)
+    ridx, rtypes = kp.p2m_select_plain(pts, fv)
+    if case == 'all_degenerate':
+        assert not ridx.any() and not rtypes.any()
+    idx, types = kp.p2m_select(pts, fv)
+    again = kp.p2m_select(pts, fv)
+    assert torch.equal(idx, ridx) and torch.equal(types, rtypes)
+    assert torch.equal(idx, again[0]) and torch.equal(types, again[1])
+
+
+def test_p2m_select_cull_skips_pairs(cuda):
+    """Config 3's scene at a small size: the cull skips most pairs and
+    changes no result."""
+    p1, _, fv = kt.utils.interop.metrics_scene(15, 5000, 10, 2000,
+                                               device=cuda)
+    scored = torch.zeros(1, dtype=torch.int64, device=cuda)
+    out = kp.select_cuda(p1, fv, scored=scored)
+    assert all(torch.equal(a, b) for a, b in
+               zip(out, kp.p2m_select_plain(p1, fv)))
+    assert 0 < int(scored) < 5000 * 2000 // 5
+
+
+def test_p2m_select_many_point_tiles(cuda):
+    """More than 65,535 tiles of points (256 a tile): the scan's grid is
+    1-D, so a cloud of any size launches."""
+    n = 65_536 * 256 + 1
+    gen = torch.Generator(cuda).manual_seed(16)
+    pts = torch.rand(1, n, 3, device=cuda, generator=gen)
+    fv = torch.rand(1, 3, 3, 3, device=cuda, generator=gen)
+    idx, types = kp.p2m_select(pts, fv)
+    ridx, rtypes = kp.p2m_select_plain(pts, fv)
+    assert torch.equal(idx, ridx) and torch.equal(types, rtypes)
 
 
 def test_config3_fit_loss_on_card_matches_cpu(cuda):

@@ -71,9 +71,9 @@ def test_octree_scan_and_points(level):
 
 
 def test_batched_scan_and_points():
-    """Three octrees of one depth (``generate_points`` of both packages
-    reads a batch of mixed depths wrongly: it takes each octree's byte
-    count from the deepest level's offset)."""
+    """Three octrees of one depth, where both packages agree (on a batch
+    of mixed depths ``kaolin_tpu``'s ``generate_points`` reads the wrong
+    bytes; ``tests/test_torch_faults.py`` holds the port there)."""
     octs = [_both_spc(4, seed=seed) for seed in (2, 4, 3)]
     cat_j = jnp.concatenate([o[0] for o in octs])
     cat_t = torch.cat([o[1] for o in octs])
