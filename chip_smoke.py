@@ -38,9 +38,25 @@ ran in it:
   origin and direction arrays), timed as ``spc_raytrace_256_L8``; its first
   hits are held against the analytic sphere.
 
-The grid-sample forward and ``p2m_select`` are also timed by the card
-alone (``torch.profiler``'s device time, beside the CUDA-event time that
-includes the host), with ``F.grid_sample`` beside the former.
+The grid-sample forward, ``p2m_select``, ``nearest_idx_pruned`` and
+``deftet_topk`` are also timed by the card alone (``torch.profiler``'s
+device time, beside the CUDA-event time that includes the host), with
+``F.grid_sample`` beside the first. ``nearest_idx_pruned`` is held against
+brute force and its plain version, two launches against each other, on
+config 3 both ways, surface clouds, exact duplicates, a lattice whose
+queries tie exactly with 8 references far apart in Morton order, two far
+clusters, a sphere-centre scene (queries within 1e-3 of the origin,
+references on the unit sphere: its worst case) and the mesh fit's clouds;
+its prepass on the card against the plain prepass; it is timed on config
+3 both ways, the sphere-centre scene and the mesh fit, each with the
+share of pairs it scanned, its launches per call and a bound that does
+not depend on its design (the pairs inside each query's cube of
+half-side sqrt(winner distance)), and on two clouds of NN_BIG points
+against brute force, with the share it scanned. ``deftet_topk`` is held
+the same way at knum 1, 30, 64 and 300, with every face doubled, on +-0.0
+depths and on a full-cover scene (every face over the whole image, its
+depth rising with its id), and timed on config 4 at knum 30 and 300 (with
+its scratch's size) and on the full-cover scene.
 ``p2m_select`` is held against its plain version on config 3, on config 3
 with the mesh listed twice (every distance tied), on points 0-2 ulps off
 the planes of a 10,000-face mesh, on a flat 10,000-face mesh (one plane:
@@ -73,12 +89,16 @@ failed check raises and the script exits non-zero without the last line.
 It exits non-zero at once when no CUDA card is visible.
 
 ``python3 chip_smoke.py --compare LABEL`` instead times only
-``grid_sample``, ``F.grid_sample``, ``p2m_select`` on its three scenes and
-the textured and config 3 steps (see ``compare``), through phase functions
-that call nothing older checkouts lack: copy the script into a parent's
-checkout to time it there.
+``grid_sample``, ``F.grid_sample``, ``p2m_select`` on its three scenes,
+``nearest_idx_pruned`` on config 3, the sphere-centre scene and two
+clouds of NN_BIG points, ``deftet_topk`` on config 4 at knum 30 and 300
+and on the full-cover scene, and the textured, config 3 and config 4
+steps (see ``compare``), through phase
+functions that call nothing older checkouts lack: copy the script into a
+parent's checkout to time it there.
 """
 
+import ctypes
 import json
 import math
 import subprocess
@@ -146,6 +166,9 @@ M3_N, M3_FACES = 100_000, 10_000
 FIT3_N, FIT3_TARGET_SUBDIV, FIT3_SUBDIV = 100_000, 5, 4
 FIT3_STEPS, FIT3_LR, FIT3_LAP, FIT3_FACTOR = 100, 1e-2, 0.1, 20.
 FIT3_EVAL, FIT3_RADIUS = 10_000, 0.05
+# the pruned NN scan at a larger size: two uniform clouds of NN_BIG points
+# drawn as config 3's are, held against the brute-force kernel
+NN_BIG = 1_000_000
 # check_sign: CHECK_N seeded points in [-1.5, 1.5]^3 against the unit
 # icosphere of subdivision 5, CHECK_CPU of them also on the CPU
 CHECK_N, CHECK_CPU = 100_000, 4096
@@ -1310,19 +1333,22 @@ def nn_checks(label, p1, p2, errs):
     chosen distances goes into ``errs``."""
     brute = kn.nearest_idx(p1, p2)
     pruned = kn.nearest_idx_pruned(p1, p2)
+    again = kn.nearest_idx_pruned(p1, p2)
     plain = kn.nearest_idx_plain(p1, p2)
     torch.cuda.synchronize()
     m_brute = int((brute != plain).sum())
     m_pruned = int((pruned != plain).sum())
     m_pair = int((pruned != brute).sum())
+    same = bool(torch.equal(pruned, again))
     ref = nn_dist(p1, p2, plain)
     e_brute = float((nn_dist(p1, p2, brute) - ref).abs().max())
     e_pruned = float((nn_dist(p1, p2, pruned) - ref).abs().max())
     log(f'[{label}] {p1.shape[1]} queries x {p2.shape[1]} references: '
         f'index mismatches against the plain version: nearest_idx {m_brute}, '
         f'nearest_idx_pruned {m_pruned}; pruned vs brute force {m_pair}; '
-        f'largest difference of the chosen distances {max(e_brute, e_pruned)}')
-    expect(m_brute == 0 and m_pruned == 0 and m_pair == 0,
+        'largest difference of the chosen distances '
+        f'{max(e_brute, e_pruned)}; two pruned launches bit-identical {same}')
+    expect(m_brute == 0 and m_pruned == 0 and m_pair == 0 and same,
            f'[{label}] a nearest-neighbour kernel disagrees')
     errs['nearest_idx'] = max(errs['nearest_idx'], e_brute)
     errs['nearest_idx_pruned'] = max(errs['nearest_idx_pruned'], e_pruned)
@@ -1467,6 +1493,175 @@ def cdist_argmin(p1, p2, rows=4096):
                       for i in range(0, p1.shape[1], rows)], dim=1)
 
 
+def lattice_ties():
+    """References on a 64 x 48 x 32 lattice of step 1/64 (98,304 points,
+    shuffled) and M3_N queries at cell centres: every coordinate and
+    difference is exact, so each query is equidistant, exactly, from the 8
+    corners of its cell, which lie far apart in Morton order where the
+    cell straddles a coarse boundary: ties span chunks visited out of
+    order."""
+    gen = torch.Generator('cuda').manual_seed(SEED)
+    axes = [torch.arange(n, device='cuda', dtype=torch.float32) / 64.
+            for n in (64, 48, 32)]
+    lat = torch.stack(torch.meshgrid(*axes, indexing='ij'), -1).reshape(
+        1, -1, 3)
+    lat = lat[:, torch.randperm(lat.shape[1], device='cuda', generator=gen)]
+    cells = torch.stack([torch.randint(0, n - 1, (1, M3_N), device='cuda',
+                                       generator=gen) for n in (64, 48, 32)],
+                        -1)
+    return (cells.float() + 0.5) / 64., lat
+
+
+def far_clusters():
+    """M3_N queries and M3_N references, each half in a cube of side 0.1
+    at the origin and half in one at (5, 5, 5)."""
+    gen = torch.Generator('cuda').manual_seed(SEED)
+    a = torch.rand(1, 2 * M3_N, 3, device='cuda', generator=gen) * 0.1
+    a[:, M3_N // 2:M3_N] += 5.
+    a[:, M3_N + M3_N // 2:] += 5.
+    return a[:, :M3_N], a[:, M3_N:]
+
+
+def sphere_centre():
+    """The pruned scan's adversarial scene: M3_N queries within 1e-3 of
+    the origin and M3_N references on the unit sphere (seeded). Every
+    distance lies within 0.2% of every other, so no box test can skip
+    much: the scan's worst case."""
+    gen = torch.Generator('cuda').manual_seed(SEED)
+    q = (torch.rand(1, M3_N, 3, device='cuda', generator=gen) - 0.5) * 1e-3
+    s = torch.randn(1, M3_N, 3, device='cuda', generator=gen)
+    return q, s / s.norm(dim=-1, keepdim=True)
+
+
+def fit_clouds():
+    """The mesh fit's clouds at its first step: FIT3_N samples of the unit
+    icosphere of subdivision FIT3_SUBDIV and its FIT3_N target points."""
+    gen = torch.Generator('cuda').manual_seed(SEED)
+    target = kt.utils.interop.ellipsoid_points(FIT3_N, FIT3_TARGET_SUBDIV,
+                                               FIT_SCALE, generator=gen)
+    verts, faces = kt.utils.interop.mesh_from_numpy(
+        *kt.utils.interop.icosphere(FIT3_SUBDIV))
+    pts = kt.ops.mesh.sample_points(verts[None], faces, FIT3_N,
+                                    generator=gen)[0]
+    return pts.contiguous(), target
+
+
+def prepass_checks(label, p1, p2):
+    """The card's pruned prepass against its plain version on the card:
+    keys, order, records and frame bit for bit, chunk boxes by value
+    (their keys, in w, bit for bit)."""
+    got, ref = kn.prepass(p1, p2), kn._prepass_plain(p1, p2)
+    torch.cuda.synchronize()
+    same = [torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                        b.view(torch.int32) if b.is_floating_point() else b)
+            for a, b in zip(got[:4] + got[5:], ref[:4] + ref[5:])]
+    same.append(torch.equal(got[4][..., :3], ref[4][..., :3])
+                and torch.equal(got[4][..., 3].contiguous().view(torch.int32),
+                                ref[4][..., 3].contiguous().view(torch.int32)))
+    log(f'[{label}] pruned prepass, card vs plain (keys, order, query '
+        f'records, reference records, frame, chunk boxes): {same}')
+    expect(all(same), f'[{label}] the pruned prepass disagrees with its '
+           'plain version')
+
+
+def launches_per_call(label, fn, iters=5):
+    """CUDA activities (kernels, copies, fills) per call of ``fn``, by
+    ``torch.profiler``; None (not measured) if the trace holds none."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    per = {e.key: e.count / iters for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.self_device_time_total > 0}
+    if not per:
+        log(f'{label}: no device activity in the trace; launches not '
+            'measured')
+        return None
+    log(f'{label}: {sum(per.values()):g} launches per call ('
+        + ', '.join(f'{k[:40]} x{v:g}' for k, v in per.items()) + ')')
+    return sum(per.values())
+
+
+def nn_times(label, p1, p2):
+    """``nearest_idx_pruned`` equal to its plain version, then timed with
+    CUDA events and by the card alone, with its launches per call (the
+    prepass's included): dict(ms, device_ms, launches_per_call)."""
+    expect(torch.equal(kn.nearest_idx_pruned(p1, p2),
+                       kn.nearest_idx_plain(p1, p2)),
+           f'[{label}] nearest_idx_pruned disagrees with its plain version')
+
+    def fn():
+        return kn.nearest_idx_pruned(p1, p2)
+    out = dict(ms=time_ms(fn, TIME_ITERS),
+               device_ms=device_ms(f'[{label}] nearest_idx_pruned', fn),
+               launches_per_call=launches_per_call(
+                   f'[{label}] nearest_idx_pruned', fn))
+    log(f'[{label}] time nearest_idx_pruned ({p1.shape[1]} queries x '
+        f'{p2.shape[1]} references): ' + json.dumps(out))
+    return out
+
+
+def nn_scanned(label, p1, p2):
+    """The share of (query, reference) pairs the pruned scan read, the
+    rest skipped by its box tests."""
+    scanned = torch.zeros(1, dtype=torch.int64, device='cuda')
+    kn.scan_cuda(p1, p2, scanned=scanned)
+    pairs = int(scanned) * kn.TQ * kn.CH
+    share = pairs / (p1.shape[0] * p1.shape[1] * p2.shape[1])
+    log(f'[{label}] pruned scan: {int(scanned)} chunks of {kn.TQ} x {kn.CH} '
+        f'pairs scanned, {share:.6f} of all pairs')
+    return share
+
+
+def nn_big_times(label, iters=3):
+    """``nearest_idx_pruned`` on two uniform clouds of NN_BIG points, equal
+    to the brute-force kernel, then timed with CUDA events and by the card
+    alone: dict(ms, device_ms)."""
+    p1, p2 = kt.utils.interop.metrics_scene(SEED, NN_BIG, NN_BIG, 1)[:2]
+    expect(torch.equal(kn.nearest_idx_pruned(p1, p2), kn.nearest_idx(p1, p2)),
+           f'[{label}] nearest_idx_pruned disagrees with nearest_idx at '
+           f'{NN_BIG} points')
+
+    def fn():
+        return kn.nearest_idx_pruned(p1, p2)
+    out = dict(ms=time_ms(fn, iters),
+               device_ms=device_ms(f'[{label}] nearest_idx_pruned, '
+                                   f'{NN_BIG} points', fn, iters=iters))
+    log(f'[{label}] time nearest_idx_pruned ({NN_BIG} queries x {NN_BIG} '
+        'references, equal to nearest_idx): ' + json.dumps(out))
+    return out, (p1, p2)
+
+
+def nn_bound(label, p1, p2, rows=2048):
+    """(bound ms, 'bytes' or 'operations', pairs) of one nearest-neighbour
+    call that does not depend on the kernel's design: both clouds read and
+    the indices written once, and 9 operations for each (query, reference)
+    pair whose reference lies in the cube of half-side sqrt(winner
+    distance) around the query (float64, from the plain winners): no test
+    by axis-aligned boxes can rule those out."""
+    h = nn_dist(p1, p2, kn.nearest_idx_plain(p1, p2)).sqrt()
+    q, r = p1.double(), p2.double()
+    pairs = 0
+    for b in range(p1.shape[0]):
+        for i in range(0, p1.shape[1], rows):
+            hh = h[b, i:i + rows, None]
+            inside = None
+            for c in range(3):
+                ax = (r[b, None, :, c] - q[b, i:i + rows, None, c]).abs() <= hh
+                inside = ax if inside is None else inside & ax
+            pairs += int(inside.sum())
+    B, N1, N2 = p1.shape[0], p1.shape[1], p2.shape[1]
+    out = bound(4 * B * (3 * N1 + 3 * N2 + N1), pairs * OPS_NN_PAIR) + (pairs,)
+    log(f'[{label}] nearest_idx_pruned bound {out[0]:.6f} ms by {out[1]} '
+        f'({pairs} pairs inside the winners\' cubes, '
+        f'{pairs / (B * N1 * N2):.6f} of all)')
+    return out
+
+
 def metrics_kernel_phases():
     """The three config-3 kernels against their plain versions on the card
     at config 3's shapes (both NN directions on every query), on a surface
@@ -1486,6 +1681,15 @@ def metrics_kernel_phases():
     dup = torch.cat([half, half.flip(1)], dim=1)
     nn_checks('exact duplicates', torch.cat([p1[:, :M3_N // 2], half], 1),
               dup, errs)
+    nn_checks('lattice ties', *lattice_ties(), errs)
+    nn_checks('two far clusters', *far_clusters(), errs)
+    nn_checks('sphere centre', *sphere_centre(), errs)
+    fit_pts, fit_target = fit_clouds()
+    nn_checks('mesh fit samples->target', fit_pts, fit_target, errs)
+    nn_checks('mesh fit target->samples', fit_target, fit_pts, errs)
+    for name, a, b in (('config3', p1, p2), ('sphere centre',
+                                             *sphere_centre())):
+        prepass_checks(name, a, b)
     ref = p2m_checks('config3', p1, fv, errs)
     p2m_checks('config3 mesh doubled', p1, torch.cat([fv, fv], dim=1), errs)
     p2m_checks('points 0-2 ulps off the planes',
@@ -1511,30 +1715,37 @@ def metrics_kernel_phases():
         'mismatches (cdist takes a square root and sums in its own order); '
         f'{lib_ms:.1f} ms, the library time of both NN rows')
 
-    _, _, _, _, starts, nums, keep = kn._pruned_ranges(p1, p2)
-    C2 = -(-M3_N // kn.T2)
-    scanned = int(keep.sum()) * kn.T1 * kn.T2
-    log(f'[config3] pruned ranges p1->p2: {starts.shape[1]} tiles of '
-        f'{kn.T1} queries, {C2} chunks of {kn.T2} references; mean range '
-        f'{float(nums.float().mean()):.2f} chunks, largest {int(nums.max())}; '
-        f'mean kept {float(keep.float().sum(-1).mean()):.2f} chunks; '
-        f'{scanned} pairs scanned, {scanned / M3_N ** 2:.4f} of brute force')
     nbytes = 4 * (2 * 3 * M3_N + M3_N)
     shape = (f'1 x {M3_N} queries x {M3_N} references (config 3, '
              'bench_suite.py:191-194)')
     times = {}
     plain_ms = time_ms(lambda: kn.nearest_idx_plain(p1, p2), 2)
-    for name, fn, pairs in (
-            ('nearest_idx', lambda: kn.nearest_idx(p1, p2), M3_N ** 2),
-            ('nearest_idx_pruned', lambda: kn.nearest_idx_pruned(p1, p2),
-             scanned)):
-        bnd = bound(nbytes, pairs * OPS_NN_PAIR)
-        times[name] = dict(ms=time_ms(fn, TIME_ITERS), plain_ms=plain_ms,
-                           library_ms=lib_ms, bound_ms=bnd[0],
-                           bound_by=bnd[1], shape=shape)
-        log(f'[config3] time {name}: ' + json.dumps(times[name]))
-    prepass_ms = time_ms(lambda: kn._pruned_ranges(p1, p2), TIME_ITERS)
-    log(f'[config3] time of the pruned prepass alone: {prepass_ms:.4f} ms, '
+    bnd = bound(nbytes, M3_N ** 2 * OPS_NN_PAIR)
+    times['nearest_idx'] = dict(
+        ms=time_ms(lambda: kn.nearest_idx(p1, p2), TIME_ITERS),
+        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd[0],
+        bound_by=bnd[1], shape=shape)
+    log('[config3] time nearest_idx: ' + json.dumps(times['nearest_idx']))
+    nn = {}
+    for name, a, b in (('config3', p1, p2), ('config3 p2->p1', p2, p1),
+                       ('sphere centre', *sphere_centre()),
+                       ('mesh fit', fit_pts, fit_target)):
+        nn[name] = dict(nn_times(name, a, b),
+                        scanned=nn_scanned(name, a, b),
+                        **dict(zip(('bound_ms', 'bound_by', 'cube_pairs'),
+                                   nn_bound(name, a, b))))
+    nn_scanned(f'{NN_BIG} points', *nn_big_times(f'{NN_BIG} points')[1])
+    times['nearest_idx_pruned'] = dict(
+        nn['config3'], plain_ms=plain_ms, library_ms=lib_ms, shape=shape)
+    log('[config3] time nearest_idx_pruned: '
+        + json.dumps(times['nearest_idx_pruned']))
+    prepass_ms = time_ms(lambda: kn.prepass(p1, p2), TIME_ITERS)
+    prepass_dev = device_ms('[config3] the pruned prepass alone',
+                            lambda: kn.prepass(p1, p2))
+    prepass_n = launches_per_call('[config3] the pruned prepass alone',
+                                  lambda: kn.prepass(p1, p2))
+    log(f'[config3] time of the pruned prepass alone: {prepass_ms:.4f} ms '
+        f'(device {prepass_dev}), {prepass_n} launches a call, '
         f'{prepass_ms / times["nearest_idx_pruned"]["ms"]:.3f} of '
         'nearest_idx_pruned')
     bnd = bounds['config3']
@@ -1753,18 +1964,61 @@ def deftet_bound(pc, fvi, valid, knum):
 def deftet_checks(label, args, knum, errs):
     """``deftet_topk`` against its plain version: every id equal."""
     out = kd.deftet_topk(*args, knum, 1e-8)
+    again = kd.deftet_topk(*args, knum, 1e-8)
     ref = kd.deftet_topk_plain(*args, knum, 1e-8)
     torch.cuda.synchronize()
     bad = int((out != ref).sum())
+    same = bool(torch.equal(out, again))
     err = float((out.double() - ref.double()).abs().max())
     log(f'[config4] {label}: {args[0].shape[1]} pixels x {args[2].shape[1]} '
         f'faces, knum {knum}: {bad} id mismatches of {out.numel()}; '
         f'{int((out >= 0).sum())} ids kept, {int((out >= 0).all(-1).sum())} '
-        'pixels full')
-    expect(bad == 0, f'[config4] {label}: deftet_topk disagrees with its '
-           'plain version')
+        f'pixels full; two launches bit-identical {same}')
+    expect(bad == 0 and same, f'[config4] {label}: deftet_topk disagrees '
+           'with its plain version or with itself')
     errs['deftet_topk'] = max(errs['deftet_topk'], err)
     return out
+
+
+def full_cover(scene):
+    """DefTet's adversarial scene: config 4's pixels and ranges, and
+    D4_FACES faces that each cover the whole image, the depth of face f
+    -1 + f / D4_FACES: every (pixel, face) pair passes every test, and
+    every face enters its pixel's list at the top. Returns the selection's
+    arguments (pixel coords, ranges, z, image coords, valid mask)."""
+    pc, rr = scene[:2]
+    tri = torch.tensor([[-3., -3.], [3., -3.], [0., 3.]], device='cuda')
+    fvi = tri.expand(1, D4_FACES, 3, 2).contiguous()
+    z = -1. + torch.arange(D4_FACES, device='cuda',
+                           dtype=torch.float32) / D4_FACES
+    fvz = z[None, :, None].expand(1, D4_FACES, 3).contiguous()
+    return pc, rr, fvz, fvi, torch.ones((1, D4_FACES), dtype=torch.bool,
+                                        device='cuda')
+
+
+def deftet_times(label, args, knum=D4_KNUM):
+    """``deftet_topk`` at ``knum`` equal to its plain version, then timed
+    with CUDA events and by the card alone: dict(ms, device_ms)."""
+    expect(torch.equal(kd.deftet_topk(*args, knum, 1e-8),
+                       kd.deftet_topk_plain(*args, knum, 1e-8)),
+           f'[{label}] deftet_topk disagrees with its plain version')
+
+    def fn():
+        return kd.deftet_topk(*args, knum, 1e-8)
+    out = dict(ms=time_ms(fn, TIME_ITERS),
+               device_ms=device_ms(f'[{label}] deftet_topk', fn))
+    log(f'[{label}] time deftet_topk ({args[0].shape[1]} pixels x '
+        f'{args[2].shape[1]} faces, knum {knum}): ' + json.dumps(out))
+    return out
+
+
+def deftet_scratch_mb(args, knum):
+    """MB of the device-memory scratch one ``deftet_topk`` call takes."""
+    nbytes = ctypes.c_longlong()
+    B, P = args[0].shape[:2]
+    _build.launch(kd._lib(), 'deftet_topk_scratch', B, P, args[2].shape[1],
+                  knum, ctypes.addressof(nbytes))
+    return nbytes.value / 1e6
 
 
 def deftet_kernel_phases(scene):
@@ -1795,9 +2049,18 @@ def deftet_kernel_phases(scene):
                                      device='cuda')).all()),
            '[config4] +0.0 does not rank above -0.0')
     args = (pc, rr, fvz, fvi, valid)
+    for knum in (1, 64):
+        deftet_checks(f'knum {knum}', args, knum, errs)
+    cover = full_cover(scene)
+    out = deftet_checks('full cover', cover, D4_KNUM, errs)
+    expect(bool((out == torch.arange(D4_FACES - 1, D4_FACES - 1 - D4_KNUM,
+                                     -1, device='cuda',
+                                     dtype=torch.int32)).all()),
+           '[config4] full cover: the faces of largest depth are not '
+           'first')
     b_ms, b_by, pairs = deftet_bound(pc, fvi, valid, D4_KNUM)
     times = {'deftet_topk': dict(
-        ms=time_ms(lambda: kd.deftet_topk(*args, D4_KNUM, 1e-8), TIME_ITERS),
+        deftet_times('config4', args),
         plain_ms=time_ms(lambda: kd.deftet_topk_plain(*args, D4_KNUM, 1e-8),
                          2),
         library_ms=None, bound_ms=b_ms, bound_by=b_by,
@@ -1805,6 +2068,14 @@ def deftet_kernel_phases(scene):
               f'{D4_KNUM} (config 4, bench_suite.py:205-229)')}
     log(f'[config4] {pairs} (pixel, face) pairs pass the bbox test, '
         f'{pairs / (pc.shape[1] * D4_FACES):.4f} of all')
+    c_ms, c_by, c_pairs = deftet_bound(cover[0], cover[3], cover[4], D4_KNUM)
+    log(f'[full cover] deftet_topk bound {c_ms:.4f} ms by {c_by} ({c_pairs} '
+        'pairs pass the bbox test)')
+    deftet_times('full cover', cover)
+    for knum in (D4_KNUM, D4_BIG_KNUM):
+        log(f'[config4] deftet_topk scratch at knum {knum}: '
+            f'{deftet_scratch_mb(args, knum):.3f} MB')
+    deftet_times('config4 knum 300', args, D4_BIG_KNUM)
     log('[config4] time deftet_topk: ' + json.dumps(times['deftet_topk']))
     return errs, times
 
@@ -2158,12 +2429,16 @@ def check_pack_ops_against_cpu(hits):
 def compare(label):
     """``--compare LABEL``: the timings that set two checkouts side by side,
     through the phase functions above, which call only what every revision
-    of the port since config 3 has: ``sampler_times`` at config 2's step,
-    the textured step, ``p2m_times`` on ``p2m_scenes`` and the config 3
-    step (``metrics_path``). Prints one JSON line per measurement tagged
-    ``label``. Copy this script into another checkout's root to time that
-    checkout; compare two checkouts in turns (a, b, b, a) on one machine,
-    since two machines may hold different cards."""
+    of the port since config 4 has: ``sampler_times`` at config 2's step,
+    the textured step, ``p2m_times`` on ``p2m_scenes``, ``nn_times`` on
+    config 3 and the sphere-centre scene, ``nn_big_times``, the config 3
+    step (``metrics_path``), ``deftet_times`` on config 4 at knum 30 and
+    300 and on the full-cover scene, and the config 4 step
+    (``deftet_path``). Prints one JSON line
+    per measurement tagged ``label``. Copy this script into another
+    checkout's root to time that checkout; compare two checkouts in turns
+    (a, b, b, a) on one machine, since two machines may hold different
+    cards."""
     card = card_line()
     log(card)
 
@@ -2176,7 +2451,20 @@ def compare(label):
     report('textured_step', {'ms': textured_step_ms(tsc)})
     for name, t in p2m_times(label, p2m_scenes()).items():
         report(f'p2m_select, {name}', t)
+    p1, p2, _ = kt.utils.interop.metrics_scene(SEED, M3_N, M3_N, M3_FACES)
+    report('nearest_idx_pruned, config3', nn_times(label, p1, p2))
+    report('nearest_idx_pruned, sphere centre',
+           nn_times(label, *sphere_centre()))
+    report(f'nearest_idx_pruned, {NN_BIG} points', nn_big_times(label)[0])
     report('config3_step', {'ms': metrics_path()[1]})
+    d4 = kt.utils.interop.deftet_scene(seed=SEED, side=D4_SIDE,
+                                       num_faces=D4_FACES)
+    valid = torch.ones(d4[2].shape[:2], dtype=torch.bool, device='cuda')
+    report('deftet_topk, config4', deftet_times(label, (*d4[:4], valid)))
+    report('deftet_topk, config4 knum 300',
+           deftet_times(label, (*d4[:4], valid), D4_BIG_KNUM))
+    report('deftet_topk, full cover', deftet_times(label, full_cover(d4)))
+    report('config4_step', {'ms': deftet_path(d4)[1]})
     log(card)
     return 0
 
@@ -2291,7 +2579,10 @@ def main():
                          bound_by=t['bound_by'], library_ms=t['library_ms'],
                          shape=t['shape'],
                          **{k: t[k] for k in ('device_ms', 'library_device_ms',
-                                              'cull_skipped') if k in t}))
+                                              'cull_skipped', 'scanned',
+                                              'cube_pairs',
+                                              'launches_per_call')
+                            if k in t}))
     expect(all(row['launches'] > 0 for row in rows),
            'a kernel of the kernels line was launched on no path')
     log(f'total {time.perf_counter() - t0:.1f} s')

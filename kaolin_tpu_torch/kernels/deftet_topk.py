@@ -13,6 +13,13 @@ order, and both rank as ``lax.top_k`` does: by depth descending in the
 float's total order (``+0.0`` above ``-0.0``), then by face id ascending.
 Any ``knum`` works, ``knum > num_faces`` included; the Pallas kernel's
 limit of 64 does not apply.
+
+On the card one call launches three kernels: one forms each face's record
+(bbox, image coords, z), one scans the faces in contiguous ranges, each
+(pixel, range) keeping its own sorted list of 64-bit keys (the depth's
+total-order key above the complemented face id), and one merges each
+pixel's lists into its first ``knum`` ids. ``csrc/deftet_topk.cu`` picks
+the ranges and sizes the scratch they take.
 """
 
 import ctypes
@@ -26,6 +33,7 @@ __all__ = ['deftet_topk', 'deftet_topk_plain', 'face_bboxes']
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
+    'deftet_topk_scratch': [_I] * 4 + [_P],
     'deftet_topk_forward': [_P] * 7 + [_I] * 4 + [_F, _I, _P],
 }
 # elements per (B, pixels, faces) score block of the plain version
@@ -148,16 +156,25 @@ def deftet_topk(pixel_coords, render_ranges, face_vertices_z,
     if valid_mask.device != pixel_coords.device:
         raise ValueError(f'deftet_topk: valid_mask on {valid_mask.device}, '
                          f'pixel_coords on {pixel_coords.device}')
-    bbox = face_bboxes(face_vertices_image, valid_mask)
-    (pc, rr, z, img, bbox), _, dev, stream = _build.cuda_inputs(
+    if valid_mask.dtype != torch.bool:
+        raise TypeError(f'deftet_topk: valid_mask must be bool, got '
+                        f'{valid_mask.dtype}')
+    (pc, rr, z, img), _, dev, stream = _build.cuda_inputs(
         'deftet_topk', (pixel_coords, render_ranges, face_vertices_z,
-                        face_vertices_image.reshape(B, F, 6), bbox))
+                        face_vertices_image.reshape(B, F, 6)))
     out = torch.empty((B, P, knum), dtype=torch.int32, device=pc.device)
-    keys = torch.empty((B, P, knum), dtype=torch.int32, device=pc.device)
-    _build.launch(_lib(), 'deftet_topk_forward', pc.data_ptr(), rr.data_ptr(),
-                  z.data_ptr(), img.data_ptr(), bbox.data_ptr(),
-                  out.data_ptr(), keys.data_ptr(), B, P, F, knum,
-                  ctypes.c_float(eps), dev, stream)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    nbytes = ctypes.c_longlong()
+    _build.launch(lib, 'deftet_topk_scratch', B, P, F, knum,
+                  ctypes.addressof(nbytes))
+    scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=pc.device)
+    _build.launch(lib, 'deftet_topk_forward', pc.data_ptr(), rr.data_ptr(),
+                  z.data_ptr(), img.data_ptr(),
+                  valid_mask.contiguous().data_ptr(), scratch.data_ptr(),
+                  out.data_ptr(), B, P, F, knum, ctypes.c_float(eps), dev,
+                  stream)
     deftet_topk.launches += 1
     return out
 

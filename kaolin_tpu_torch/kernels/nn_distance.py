@@ -1,35 +1,36 @@
-"""Nearest-neighbour indices: the CUDA kernels of ``csrc/nn_distance.cu``,
-the pruned scan's prepass, and their plain PyTorch version.
+"""Nearest-neighbour indices: the CUDA kernels of ``csrc/nn_distance.cu``
+and their plain PyTorch versions.
 
 Port of ``kaolin_tpu/kernels/nn_distance.py``: ``nearest_idx`` replaces
 ``nearest_idx_pallas`` (brute force) and ``nearest_idx_pruned`` replaces
-``nearest_idx_pruned`` (a scan over chunk ranges of Morton-sorted
-references). Each wrapper follows its inputs: on CUDA tensors it launches
-its kernel (float32 only) and counts the launch in its ``launches``
-attribute; on CPU tensors it runs :func:`nearest_idx_plain`, which follows
-the JAX package's XLA scan (``_nearest_idx`` of
-``kaolin_tpu/metrics/pointcloud.py``) and takes float32 or float64. All
-three give the same indices: the distance is ``(dx*dx + dy*dy) + dz*dz``
-of ``d = p1 - p2``, with no fused multiply-add, and ties keep the lowest
-index. The Pallas kernels' limit of 640k reference points does not apply.
+``nearest_idx_pruned`` (a scan of Morton-sorted references that skips
+those no box test leaves). Each wrapper follows its inputs: on CUDA tensors
+it launches its kernels (float32 only) and counts one launch per call in
+its ``launches`` attribute; on CPU tensors it runs
+:func:`nearest_idx_plain`, which follows the JAX package's XLA scan
+(``_nearest_idx`` of ``kaolin_tpu/metrics/pointcloud.py``) and takes
+float32 or float64. All three give the same indices: the distance is
+``(dx*dx + dy*dy) + dz*dz`` of ``d = p1 - p2``, with no fused
+multiply-add, and ties keep the lowest index. The Pallas kernels' limit of
+640k reference points does not apply.
 
-The pruned prepass runs in PyTorch on the inputs' device, with no copy to
-the host: Morton-sort both clouds on one shared grid, cut the queries into
-tiles of ``T1`` and the references into chunks of ``T2``, bound each
-(tile, chunk) pair's distances from below by the squared gap of their
-boxes and each tile's winners from above by the distances to a probe of
-``PROBE`` references (the window of sorted references around the tile's
-middle Morton code, so spatially close to it), and give each tile the
-contiguous chunk range that holds every chunk the bounds cannot rule out,
-with a flag per chunk of the range: the kernel skips a chunk the bounds
-rule out. The upper bound is formed in the kernel's own distance form, so
-it bounds the kernel's winner exactly; the lower bound is formed in
-float64 and then lowered by 2^-20 of itself and by 2^-120, more than
-float32 rounding of the kernel's distances can take from it, so no chunk
-that holds a winner or a tie is skipped.
+The pruned scan's prepass (:func:`prepass`) runs on the card with no copy
+to the host and no wait for it: one kernel reduces both clouds' box and
+writes each point's 32-bit key (its batch entry and cloud, then its
+Morton code on that box), ``torch.sort`` sorts all keys at once, and one
+kernel writes both sorted clouds as float4 records and each chunk of
+``CH`` references' box. :func:`_prepass_plain` is its plain version, bit
+for bit. The scan then gives each warp a tile of ``TQ`` sorted queries,
+visits the chunks nearest first in Morton order, skips a chunk whose box
+lies farther from every query of the warp than its best distance so far,
+and stops once no chunk left has a sort key that a point that near could
+have; ``csrc/nn_distance.cu`` derives why no winner or tie is skipped.
+``TQ``, ``CH``, ``_EXT_BLOCKS`` and ``_PAD_ORIG`` are the kernel's own
+(``nearest_idx_layout``): loading the library checks that they agree.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -37,12 +38,12 @@ from . import _build
 from .rasterize import _is_cuda
 
 __all__ = ['nearest_idx', 'nearest_idx_pruned', 'nearest_idx_plain',
-           'T1', 'T2', 'PROBE']
+           'prepass', 'TQ', 'CH']
 
-T1 = 128        # queries per tile (the kernel's block)
-T2 = 512        # references per chunk (the kernel's shared-memory stage)
-PROBE = 128     # references probed per tile for its upper bound
-_PAD_ORIG = 1 << 29     # original index of a pad: loses every tie
+TQ = 64         # queries per warp tile of the pruned scan (R = 2 a lane)
+CH = 32         # references per chunk of the pruned scan
+_EXT_BLOCKS = 64    # blocks of the card's box reduction per batch entry
+_PAD_ORIG = 0x7fffffff  # original index of a pad: loses every tie
 # the plain version's chunk of references (the XLA scan's) and its budget
 # of elements per (B, queries, references) intermediate
 _PLAIN_CHUNK = 1024
@@ -51,8 +52,12 @@ _PLAIN_BUDGET = 1 << 24
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     'nearest_idx_forward': [_P] * 3 + [_I] * 4 + [_P],
-    'nearest_idx_pruned_forward': [_P] * 8 + [_I] * 8 + [_P],
+    'nearest_idx_layout': [_P],
+    'nearest_idx_keys': [_P] * 5 + [_I] * 4 + [_P],
+    'nearest_idx_pack': [_P] * 7 + [_I] * 4 + [_P],
+    'nearest_idx_pruned_forward': [_P] * 6 + [_I] * 3 + [_P, _I, _P],
 }
+_LAYOUT = (TQ, CH, _EXT_BLOCKS, _PAD_ORIG)
 
 
 def _sq_dist(q, r):
@@ -93,8 +98,16 @@ def nearest_idx_plain(p1, p2):
     return idx
 
 
+@functools.cache
 def _lib():
-    return _build.load('nn_distance', _SIGNATURES)
+    lib = _build.load('nn_distance', _SIGNATURES)
+    layout = (ctypes.c_int * len(_LAYOUT))()
+    _build.launch(lib, 'nearest_idx_layout', ctypes.addressof(layout))
+    if tuple(layout) != _LAYOUT:
+        raise RuntimeError(f'csrc/nn_distance.cu lays the pruned scan out '
+                           f'as {tuple(layout)} (TQ, CH, EXT_BLOCKS, '
+                           f'PAD_ORIG), this module as {_LAYOUT}')
+    return lib
 
 
 def _check(fn, p1, p2):
@@ -114,6 +127,8 @@ def nearest_idx(p1, p2):
         return nearest_idx_plain(p1, p2)
     (a, b), _, dev, stream = _build.cuda_inputs('nearest_idx', (p1, p2))
     B, N1, _ = a.shape
+    if B * N1 * b.shape[1] == 0:
+        return torch.zeros((B, N1), dtype=torch.int32, device=a.device)
     idx = torch.empty((B, N1), dtype=torch.int32, device=a.device)
     _build.launch(_lib(), 'nearest_idx_forward', a.data_ptr(), b.data_ptr(),
                   idx.data_ptr(), B, N1, b.shape[1], dev, stream)
@@ -128,99 +143,160 @@ def _spread3(v):
     return (v | (v << 2)) & 0x09249249
 
 
-def _morton(p, lo, span):
-    """(B, N, 3) -> (B, N) int32 Morton codes on the 1024^3 grid of the
-    box ``lo`` + [0, ``span``] (B, 1, 3)."""
-    q = ((p - lo) / span * 1024.).clamp(0., 1023.).to(torch.int32)
-    return ((_spread3(q[..., 0]) << 2) | (_spread3(q[..., 1]) << 1)
-            | _spread3(q[..., 2]))
+def _key_bits(B):
+    """(segment bits, Morton bits per axis) of the 32-bit sort keys of
+    ``B`` batch entries: 2B segments (entry, cloud), and as many Morton bits
+    as fit below them, at most 10 an axis."""
+    sb = max(1, (2 * B - 1).bit_length())
+    return sb, min(10, (32 - sb) // 3)
 
 
-def _msort(p, pad_to, lo, span):
-    """Morton-sorts a cloud and pads it to ``pad_to`` points by repeating
-    the last sorted point. Returns (sorted (B, pad_to, 3), original index
-    (B, pad_to) int32, pads ``_PAD_ORIG``, sorted codes (B, pad_to)). The
-    sort is stable; the scan's result does not depend on the order within
-    equal codes."""
-    B, N, _ = p.shape
-    codes, order = torch.sort(_morton(p, lo, span), dim=1, stable=True)
-    ps = torch.gather(p, 1, order[..., None].expand(B, N, 3))
-    orig = order.to(torch.int32)
-    pad = pad_to - N
-    if pad:
-        ps = torch.cat([ps, ps[:, -1:].expand(B, pad, 3)], dim=1)
-        orig = torch.cat([orig, torch.full((B, pad), _PAD_ORIG,
-                                           dtype=torch.int32,
-                                           device=p.device)], dim=1)
-        codes = torch.cat([codes, codes[:, -1:].expand(B, pad)], dim=1)
-    return ps.contiguous(), orig.contiguous(), codes.contiguous()
-
-
-def _pruned_ranges(p1, p2):
-    """The prepass of :func:`nearest_idx_pruned`, on the inputs' device.
-
-    Returns (sorted queries (B, C1*T1, 3), their original indices, sorted
-    references (B, C2*T2, 3), theirs, starts (B, C1) int32, nums (B, C1)
-    int32, keep (B, C1, C2) uint8): tile ``i`` of the sorted queries scans
-    the reference chunks ``c`` of ``starts[i] .. starts[i] + nums[i] - 1``
-    with ``keep[i, c]`` set."""
-    B, N1, _ = p1.shape
-    N2 = p2.shape[1]
-    C1, C2 = -(-N1 // T1), -(-N2 // T2)
-    # one grid for both clouds, so that their codes compare
+def _frame(p1, p2):
+    """(B, 1, 3) lo and span of the box around both clouds of each batch
+    entry, on which the sort keys are formed."""
     lo = torch.minimum(p1.amin(dim=1, keepdim=True),
                        p2.amin(dim=1, keepdim=True))
     span = (torch.maximum(p1.amax(dim=1, keepdim=True),
                           p2.amax(dim=1, keepdim=True)) - lo).clamp(min=1e-12)
-    p1s, orig1, codes1 = _msort(p1, C1 * T1, lo, span)
-    p2s, orig2, codes2 = _msort(p2, C2 * T2, lo, span)
-    q = p1s.reshape(B, C1, T1, 3)
-    r = p2s.reshape(B, C2, T2, 3)
-    qlo, qhi = q.amin(dim=2).double(), q.amax(dim=2).double()
-    rlo, rhi = r.amin(dim=2).double(), r.amax(dim=2).double()
-    # lower bound of every (tile, chunk) distance: the squared gap of the
-    # boxes, in float64, then lowered past float32 rounding
-    gap = torch.maximum(rlo[:, None] - qhi[:, :, None],
-                        qlo[:, :, None] - rhi[:, None]).clamp(min=0.)
-    lb = (gap * gap).sum(dim=-1) * (1. - 2. ** -20) - 2. ** -120
-    # upper bound of each tile's winners: the largest over its queries of
-    # the nearest of the PROBE sorted references around the tile's middle
-    # code, in the kernel's distance form
-    mid = torch.searchsorted(codes2, codes1[:, T1 // 2::T1].contiguous())
-    pidx = ((mid - PROBE // 2).clamp(0, C2 * T2 - PROBE)[..., None]
-            + torch.arange(PROBE, device=p1.device))              # (B,C1,P)
-    ppts = torch.gather(p2s, 1, pidx.reshape(B, -1, 1).expand(-1, -1, 3))
-    ppts = ppts.reshape(B, C1, 1, PROBE, 3)
-    ub = _sq_dist(q[:, :, :, None, :], ppts).amin(dim=-1).amax(dim=-1)
-    keep = (lb <= ub.double()[..., None]).to(torch.uint8)         # (B,C1,C2)
-    first = torch.argmax(keep, dim=-1)
-    last = C2 - 1 - torch.argmax(keep.flip(-1), dim=-1)
-    return (p1s, orig1, p2s, orig2, first.to(torch.int32).contiguous(),
-            (last - first + 1).to(torch.int32).contiguous(),
-            keep.contiguous())
+    return lo, span
 
 
-def nearest_idx_pruned(p1, p2):
-    """:func:`nearest_idx` by a pruned scan: the same (B, N1) int32
-    indices, ties included, with each tile of Morton-sorted queries
-    scanning only the chunks of Morton-sorted references that the prepass
-    leaves it."""
-    _check('nearest_idx_pruned', p1, p2)
-    if not _is_cuda(p1):
-        return nearest_idx_plain(p1, p2)
+def _keys(p, lo, span, B, cloud):
+    """int64 sort keys of points ``p`` (B, n, 3) of one cloud (0 queries,
+    1 references) on the box (lo, span): the point's Morton code on a 2^m
+    grid of the box below its segment (2 b + cloud), the top bit flipped
+    so that signed order is unsigned order."""
+    sb, m = _key_bits(B)
+    q = ((p - lo) / span * float(1 << m)).clamp(
+        0., float((1 << m) - 1)).to(torch.int64)
+    code = ((_spread3(q[..., 0]) << 2) | (_spread3(q[..., 1]) << 1)
+            | _spread3(q[..., 2]))
+    seg = 2 * torch.arange(B, device=p.device)[:, None] + cloud
+    return ((seg << (32 - sb)) | code) - (1 << 31)
+
+
+def _sort_keys(p1, p2):
+    """(B * (N1 + N2),) int32 sort keys of both clouds, as the card's
+    prepass forms them, on one box around both clouds per batch entry."""
+    B = p1.shape[0]
+    lo, span = _frame(p1, p2)
+    return torch.cat([_keys(p, lo, span, B, cloud)
+                      for cloud, p in enumerate((p1, p2))],
+                     dim=1).to(torch.int32).reshape(-1)
+
+
+def _records(p, order, n, pad_to):
+    """(B, pad_to, 4) float32 records (x, y, z, original index's bits) of
+    one cloud in sorted order, padded by repeating the last sorted point
+    with the index ``_PAD_ORIG``; ``order`` (B, n) holds the original
+    indices."""
+    B = p.shape[0]
+    idx = torch.cat([order, order[:, -1:].expand(B, pad_to - n)], dim=1)
+    pts = torch.gather(p, 1, idx[..., None].expand(B, pad_to, 3))
+    orig = idx.to(torch.int32)
+    orig[:, n:] = _PAD_ORIG
+    return torch.cat([pts, orig.view(torch.float32)[..., None]], dim=-1)
+
+
+def _prepass_plain(p1, p2):
+    """Plain version of the pruned scan's prepass on the card (float32):
+    see :func:`prepass`."""
+    B, N1, _ = p1.shape
+    N2 = p2.shape[1]
+    C1, C2 = -(-N1 // TQ), -(-N2 // CH)
+    skeys, order = torch.sort(_sort_keys(p1, p2), stable=True)
+    seg = order.reshape(B, N1 + N2) - (N1 + N2) * torch.arange(
+        B, device=p1.device)[:, None]
+    qrec = _records(p1, seg[:, :N1], N1, C1 * TQ)
+    rrec = _records(p2, seg[:, N1:] - N1, N2, C2 * CH)
+    r = rrec[..., :3].reshape(B, C2, CH, 3)
+    rkeys = skeys.reshape(B, N1 + N2)[:, N1:]
+    rkeys = torch.cat([rkeys, rkeys[:, -1:].expand(B, C2 * CH - N2)], dim=1)
+    rkeys = rkeys.reshape(B, C2, CH).view(torch.float32)
+    rbox = torch.stack([torch.cat([r.amin(dim=2), rkeys[..., :1]], -1),
+                        torch.cat([r.amax(dim=2), rkeys[..., -1:]], -1)],
+                       dim=2)
+    zero = torch.zeros((B, 2, 1), dtype=p1.dtype, device=p1.device)
+    frame = torch.cat([torch.cat(_frame(p1, p2), dim=1), zero], -1)
+    return skeys, order, qrec, rrec, rbox, frame
+
+
+def _prepass_cuda(p1, p2):
+    """The card's prepass on contiguous float32 CUDA clouds."""
+    B, N1, _ = p1.shape
+    N2 = p2.shape[1]
+    C1, C2 = -(-N1 // TQ), -(-N2 // CH)
+    dev, stream = p1.device.index, _build.stream(p1.device)
+    ext = torch.empty((B, _EXT_BLOCKS, 6), dtype=torch.float32,
+                      device=p1.device)
+    keys = torch.empty(B * (N1 + N2), dtype=torch.int32, device=p1.device)
+    frame = torch.empty((B, 2, 4), dtype=torch.float32, device=p1.device)
+    _build.launch(_lib(), 'nearest_idx_keys', p1.data_ptr(), p2.data_ptr(),
+                  ext.data_ptr(), keys.data_ptr(), frame.data_ptr(), B, N1,
+                  N2, dev, stream)
+    skeys, order = torch.sort(keys, stable=True)
+    qrec = torch.empty((B, C1 * TQ, 4), dtype=torch.float32, device=p1.device)
+    rrec = torch.empty((B, C2 * CH, 4), dtype=torch.float32, device=p1.device)
+    rbox = torch.empty((B, C2, 2, 4), dtype=torch.float32, device=p1.device)
+    _build.launch(_lib(), 'nearest_idx_pack', p1.data_ptr(), p2.data_ptr(),
+                  skeys.data_ptr(), order.data_ptr(), qrec.data_ptr(),
+                  rrec.data_ptr(), rbox.data_ptr(), B, N1, N2, dev, stream)
+    return skeys, order, qrec, rrec, rbox, frame
+
+
+def prepass(p1, p2):
+    """The prepass of :func:`nearest_idx_pruned` on float32 clouds of at
+    least one point each, on their device: on the card two kernels and a
+    ``torch.sort``, then a third kernel; on the CPU its plain version, with
+    the same bits.
+
+    Returns (sorted keys (B * (N1 + N2),) int32 -- per entry its queries'
+    run, then its references' --, the sort's order (B * (N1 + N2),) int64,
+    query records (B, C1 * TQ, 4), reference records (B, C2 * CH, 4) and
+    the reference chunks' boxes (B, C2, 2, 4) as (lo, hi), w the bits of
+    the chunk's first and last sorted key, and
+    each entry's box of both clouds (B, 2, 4) as (lo, span) with w = 0, on
+    which the keys are formed), C1 = ceil(N1 / TQ), C2 = ceil(N2 / CH).
+    A record is (x, y, z, the
+    original index's int32 bits), in Morton order, padded by repeating the
+    last sorted point with the index ``_PAD_ORIG``."""
+    if _is_cuda(p1):
+        return _prepass_cuda(*_build.cuda_inputs('prepass', (p1, p2))[0])
+    return _prepass_plain(p1, p2)
+
+
+def scan_cuda(p1, p2, scanned=None):
+    """The prepass and the scan of :func:`nearest_idx_pruned` on checked
+    CUDA inputs of at least one point each, not counted in its launches.
+    ``scanned``, a zeroed (1,) int64 tensor on the card, gains the number
+    of chunks scanned, each of ``TQ`` x ``CH`` pairs (the rest the box
+    tests skipped)."""
     (p1, p2), _, dev, stream = _build.cuda_inputs('nearest_idx_pruned',
                                                   (p1, p2))
     B, N1, _ = p1.shape
     N2 = p2.shape[1]
-    if N1 == 0 or N2 == 0:
-        return torch.zeros((B, N1), dtype=torch.int32, device=p1.device)
-    p1s, orig1, p2s, orig2, starts, nums, keep = _pruned_ranges(p1, p2)
+    skeys, _, qrec, rrec, rbox, frame = _prepass_cuda(p1, p2)
     out = torch.empty((B, N1), dtype=torch.int32, device=p1.device)
-    _build.launch(_lib(), 'nearest_idx_pruned_forward', p1s.data_ptr(),
-                  orig1.data_ptr(), p2s.data_ptr(), orig2.data_ptr(),
-                  starts.data_ptr(), nums.data_ptr(), keep.data_ptr(),
-                  out.data_ptr(), B, N1, N2, starts.shape[1],
-                  p2s.shape[1] // T2, T1, T2, dev, stream)
+    _build.launch(_lib(), 'nearest_idx_pruned_forward', skeys.data_ptr(),
+                  frame.data_ptr(), qrec.data_ptr(), rrec.data_ptr(),
+                  rbox.data_ptr(), out.data_ptr(), B, N1, N2,
+                  None if scanned is None else scanned.data_ptr(), dev,
+                  stream)
+    return out
+
+
+def nearest_idx_pruned(p1, p2):
+    """:func:`nearest_idx` by a pruned scan: the same (B, N1) int32
+    indices, ties included, with each warp's tile of Morton-sorted queries
+    visiting the chunks of Morton-sorted references nearest first and
+    skipping each chunk whose box lies farther from every query than its
+    best distance so far."""
+    _check('nearest_idx_pruned', p1, p2)
+    if not _is_cuda(p1):
+        return nearest_idx_plain(p1, p2)
+    if p1.shape[0] * p1.shape[1] * p2.shape[1] == 0:
+        return torch.zeros(p1.shape[:2], dtype=torch.int32, device=p1.device)
+    out = scan_cuda(p1, p2)
     nearest_idx_pruned.launches += 1
     return out
 

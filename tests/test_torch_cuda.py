@@ -359,6 +359,112 @@ def test_nearest_idx_pruned_on_clusters_and_surfaces(cuda):
                            kn.nearest_idx(p1, p2))
 
 
+def _nn_scene(device, case):
+    """(queries, references) of one pruned-scan scene, float32 on
+    ``device``."""
+    g = torch.Generator(device).manual_seed(17)
+    if case == 'ragged':
+        # sizes no tile or chunk divides, N1 != N2, B = 2
+        return (torch.rand(2, 3001, 3, device=device, generator=g),
+                torch.rand(2, 20_011, 3, device=device, generator=g))
+    if case == 'lattice_ties':
+        # references on a 32^3 lattice, every one twice (the copies at far
+        # indices); queries at cell centres, equidistant from 8 corners
+        # that lie far apart in Morton order: exact ties across chunks
+        # visited out of order
+        k = torch.arange(32, device=device, dtype=torch.float32) / 32.
+        lat = torch.stack(torch.meshgrid(k, k, k, indexing='ij'), -1)
+        lat = lat.reshape(1, -1, 3)[:, torch.randperm(
+            32 ** 3, device=device, generator=g)]
+        cells = (torch.randint(0, 31, (1, 4000, 3), device=device,
+                               generator=g).float() + 0.5) / 32.
+        return cells, torch.cat([lat, lat.flip(1)], dim=1)
+    if case == 'clusters':
+        a = torch.rand(1, 30_000, 3, device=device, generator=g)
+        far = torch.cat([a[:, :15_000] * 0.1, a[:, 15_000:] * 0.1 + 5.], 1)
+        return far[:, ::3].contiguous(), far.flip(1).contiguous()
+    if case == 'zero_span':
+        return (torch.full((1, 700, 3), 0.25, device=device),
+                torch.full((1, 2500, 3), 0.25, device=device))
+    # sphere_centre: queries within 1e-3 of the origin, references on the
+    # unit sphere; every distance lies within 0.2% of every other, so the
+    # box tests can skip almost nothing
+    q = (torch.rand(1, 3000, 3, device=device, generator=g) - 0.5) * 1e-3
+    s = torch.randn(1, 20_000, 3, device=device, generator=g)
+    return q, s / s.norm(dim=-1, keepdim=True)
+
+
+@pytest.mark.parametrize('case', ['ragged', 'lattice_ties', 'clusters',
+                                  'zero_span', 'sphere_centre'])
+def test_nearest_idx_pruned_scenes(cuda, case):
+    """The pruned scan equals brute force and the plain version on every
+    query, one launch counted per call, two launches bit-identical."""
+    p1, p2 = _nn_scene(cuda, case)
+    n = kn.nearest_idx_pruned.launches
+    out = kn.nearest_idx_pruned(p1, p2)
+    again = kn.nearest_idx_pruned(p1, p2)
+    assert kn.nearest_idx_pruned.launches == n + 2
+    ref = kn.nearest_idx_plain(p1, p2)
+    assert torch.equal(out, ref) and torch.equal(again, out)
+    assert torch.equal(kn.nearest_idx(p1, p2), ref)
+    if case == 'lattice_ties':
+        d = kn._sq_dist(p1[0, :, None], p2[0, None])
+        assert int((d == d.amin(dim=1, keepdim=True)).sum()) >= 8 * 4000
+
+
+@pytest.mark.parametrize('case', ['ragged', 'lattice_ties', 'zero_span'])
+def test_nearest_idx_prepass_matches_plain(cuda, case):
+    """The card's prepass (two kernels, the sort, a third kernel) gives
+    the plain prepass's keys, order, records and frame bit for bit, and
+    its chunk boxes by value (their keys, in w, bit for bit)."""
+    p1, p2 = _nn_scene(cuda, case)
+    got = kn.prepass(p1, p2)
+    ref = kn._prepass_plain(p1, p2)
+    for a, b in zip(got[:4] + got[5:], ref[:4] + ref[5:]):
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point()
+                           else a, b.view(torch.int32)
+                           if b.is_floating_point() else b)
+    assert torch.equal(got[4][..., :3], ref[4][..., :3])
+    assert torch.equal(got[4][..., 3].contiguous().view(torch.int32),
+                       ref[4][..., 3].contiguous().view(torch.int32))
+
+
+def test_empty_calls_count_no_launch(cuda):
+    """A call that launches nothing counts nothing: the NN kernels on an
+    empty cloud, DefTet's selection at knum 0 and on no pixels."""
+    p = torch.rand(1, 50, 3, device=cuda)
+    empty = torch.zeros(1, 0, 3, device=cuda)
+    for fn in (kn.nearest_idx, kn.nearest_idx_pruned):
+        n = fn.launches
+        for a, b in ((empty, p), (p, empty), (empty, empty)):
+            out = fn(a, b)
+            assert out.shape == a.shape[:2] and not bool(out.any())
+        assert fn.launches == n
+    pc, rr, fvz, fvi = kt.utils.interop.deftet_scene(seed=0, side=8,
+                                                     num_faces=40,
+                                                     device=cuda)[:4]
+    valid = torch.ones(fvz.shape[:2], dtype=torch.bool, device=cuda)
+    n = kd.deftet_topk.launches
+    assert kd.deftet_topk(pc, rr, fvz, fvi, valid, 0, 1e-8).shape == (1, 64,
+                                                                      0)
+    assert kd.deftet_topk(pc[:, :0], rr[:, :0], fvz, fvi, valid, 5,
+                          1e-8).shape == (1, 0, 5)
+    assert kd.deftet_topk.launches == n
+    kd.deftet_topk(pc, rr, fvz, fvi, valid, 5, 1e-8)
+    assert kd.deftet_topk.launches == n + 1
+
+
+def test_nearest_idx_pruned_skips_chunks(cuda):
+    """Config 3's clouds at a small size: the box tests skip most chunks
+    and change no result."""
+    p1, p2, _ = kt.utils.interop.metrics_scene(18, 20_000, 20_000, 1,
+                                               device=cuda)
+    scanned = torch.zeros(1, dtype=torch.int64, device=cuda)
+    out = kn.scan_cuda(p1, p2, scanned=scanned)
+    assert torch.equal(out, kn.nearest_idx_plain(p1, p2))
+    assert 0 < int(scanned) * kn.TQ * kn.CH < 20_000 ** 2 // 5
+
+
 def _grid_mesh_points(device):
     """The grid mesh of ``tests/test_metrics.py`` with points above its
     vertices and edge midpoints (exact ties, summed codes above 6)."""
@@ -531,6 +637,71 @@ def test_deftet_topk_kernel_matches_plain(cuda, case):
     ref = kd.deftet_topk_plain(pc, rr, fvz, fvi, valid, knum, 1e-8)
     assert torch.equal(out, ref)
     assert int((out >= 0).sum()) > 0
+    if case == 'signed_zero':
+        assert (out.cpu() == torch.tensor([5, 1, 3, 0, 2],
+                                          dtype=torch.int32)).all()
+
+
+def _deftet_split_case(device, case):
+    """(pixel coords, ranges, z, image coords, valid mask, knum) of one
+    split-and-merge scene, float32 on ``device``."""
+    if case == 'full_cover':
+        # every face covers the whole image, its depth rising with its id:
+        # every pair passes, and every face enters its list at the top
+        pc, rr = kt.utils.interop.deftet_scene(seed=0, side=40, num_faces=1,
+                                               device=device)[:2]
+        F = 1531
+        fvi = torch.tensor([[-3., -3.], [3., -3.], [0., 3.]],
+                           device=device).expand(1, F, 3, 2).contiguous()
+        z = -1. + torch.arange(F, device=device, dtype=torch.float32) / F
+        fvz = z[None, :, None].expand(1, F, 3).contiguous()
+        return (pc, rr, fvz, fvi, torch.ones((1, F), dtype=torch.bool,
+                                             device=device), 30)
+    if case == 'signed_zero':
+        return _deftet_case(device, 'signed_zero')
+    if case == 'batch2':
+        # B = 2, P not a multiple of 32, invalid faces
+        scenes = [kt.utils.interop.deftet_scene(seed=s, side=37,
+                                                num_faces=1531,
+                                                device=device)
+                  for s in (8, 9)]
+        pc, rr, fvz, fvi = (torch.cat([sc[i] for sc in scenes])
+                            for i in range(4))
+        g = torch.Generator(device).manual_seed(10)
+        valid = torch.rand(fvz.shape[:2], device=device, generator=g) > 0.3
+        return pc, rr, fvz, fvi, valid, 30
+    pc, rr, fvz, fvi, _ = kt.utils.interop.deftet_scene(
+        seed=11, side=40, num_faces=1531, device=device)
+    valid = torch.ones(fvz.shape[:2], dtype=torch.bool, device=device)
+    if case == 'doubled':
+        fvz = torch.cat([fvz, fvz.flip(1)], dim=1)
+        fvi = torch.cat([fvi, fvi.flip(1)], dim=1)
+        valid = torch.cat([valid, valid], dim=1)
+        return pc, rr, fvz, fvi, valid, 30
+    knum = int(case[4:])            # 'knum<k>'
+    return pc, rr, fvz, fvi, valid, knum
+
+
+@pytest.mark.parametrize('case', ['knum1', 'knum30', 'knum64', 'knum300',
+                                  'knum2000', 'doubled', 'signed_zero',
+                                  'batch2', 'full_cover'])
+def test_deftet_topk_split_scenes(cuda, case):
+    """The split-and-merge kernels against the plain version, two launches
+    bit-identical: ``knum`` 1, 30, 64 (the largest list in shared memory),
+    300 (lists in device memory) and 2000 > F, 1,531 faces (no range count
+    or stage divides them), every face doubled (ties across ranges), +0.0
+    and -0.0 depths, batch 2 with 1,369 pixels and invalid faces, and a
+    full-cover scene."""
+    pc, rr, fvz, fvi, valid, knum = _deftet_split_case(cuda, case)
+    out = kd.deftet_topk(pc, rr, fvz, fvi, valid, knum, 1e-8)
+    again = kd.deftet_topk(pc, rr, fvz, fvi, valid, knum, 1e-8)
+    ref = kd.deftet_topk_plain(pc, rr, fvz, fvi, valid, knum, 1e-8)
+    assert torch.equal(out, ref) and torch.equal(again, out)
+    assert int((out >= 0).sum()) > 0
+    if case == 'full_cover':
+        F = fvz.shape[1]
+        top = torch.arange(F - 1, F - 31, -1, device=cuda, dtype=torch.int32)
+        assert bool((out == top).all())
     if case == 'signed_zero':
         assert (out.cpu() == torch.tensor([5, 1, 3, 0, 2],
                                           dtype=torch.int32)).all()

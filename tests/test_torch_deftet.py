@@ -134,6 +134,83 @@ def test_signed_zero_depths(dtype):
         assert (out.numpy() == np.array([1, 3, 0, 2])[:knum]).all()
 
 
+def _split_merge_plain(pixel_coords, render_ranges, face_vertices_z,
+                       face_vertices_image, valid_mask, knum, eps, splits):
+    """The card's selection written out in PyTorch (float32): each of
+    ``splits`` contiguous face ranges keeps, per pixel, its ``knum``
+    largest 64-bit keys (the depth's total-order key in the high word,
+    the complemented face id in the low word, hits only), then each
+    pixel's ``splits * knum`` keys give its first ``knum`` face ids, -1
+    past the last hit."""
+    B, P, _ = pixel_coords.shape
+    F = face_vertices_z.shape[1]
+    img = face_vertices_image.reshape(B, F, 6)
+    bbox = kd.face_bboxes(face_vertices_image, valid_mask)
+    score = kd._scores(pixel_coords, render_ranges, face_vertices_z, img,
+                       bbox, eps)
+    ids = torch.arange(F, dtype=torch.int64)
+    keys = (kd._order_key(score).to(torch.int64) << 32) | (~ids & 0xffffffff)
+    empty = torch.iinfo(torch.int64).min
+    keys = torch.where(score > float('-inf'), keys, empty)
+    lists = []
+    for s in range(splits):
+        part = keys[..., F * s // splits:F * (s + 1) // splits]
+        top = torch.sort(part, dim=-1, descending=True)[0][..., :knum]
+        lists.append(torch.cat([top, torch.full(
+            (B, P, knum - top.shape[-1]), empty)], dim=-1))
+    top = torch.sort(torch.cat(lists, dim=-1), dim=-1,
+                     descending=True)[0][..., :knum]
+    return torch.where(top > empty, ~(top & 0xffffffff) & 0xffffffff,
+                       -1).to(torch.int32)
+
+
+def _split_case(case):
+    """(pixel coords, ranges, z, image coords, valid mask) of one
+    split-and-merge case, float32 torch tensors, batch 2 but 'signed_zero'
+    (batch 1)."""
+    if case == 'signed_zero':
+        pc, rr = _pixels(8, np.float32)
+        rr = np.tile(np.array([[-1., 1.]], np.float32), (64, 1))[None]
+        tri = np.array([[-3., -3.], [3., -3.], [0., 3.]])
+        fvi = np.tile(tri[None, None], (1, 6, 1, 1)).astype(np.float32)
+        fvz = np.array([-0., 0., -0., 0., -0.5, 0.5],
+                       np.float32)[None, :, None].repeat(3, 2)
+        return _t(pc, rr, fvz, fvi, np.ones((1, 6), bool))
+    scenes = [_scene('random', np.float32, faces=333, side=19, seed=s)
+              for s in (5, 6)]
+    pc, rr, fvz, fvi = (np.concatenate([sc[i] for sc in scenes])
+                        for i in range(4))
+    if case == 'ties':
+        fvz = np.concatenate([fvz, fvz[:, ::-1]], axis=1)
+        fvi = np.concatenate([fvi, fvi[:, ::-1]], axis=1)
+    valid = np.random.default_rng(7).random(fvz.shape[:2]) > 0.2
+    return _t(pc, rr, fvz, fvi, valid)
+
+
+@pytest.mark.parametrize('case,knum', [('random', 1), ('random', 30),
+                                       ('random', 64), ('random', 500),
+                                       ('ties', 7), ('ties', 30),
+                                       ('signed_zero', 5),
+                                       ('signed_zero', 9)])
+def test_split_merge_selection_matches_plain(case, knum):
+    """The card's selection written out (each contiguous face range keeps
+    its first ``knum`` 64-bit keys, then the ranges' lists merge) against
+    :func:`deftet_topk_plain`: every face doubled (exact ties across
+    ranges), +0.0 above -0.0, ``knum`` above the face count (500 > 333, 9
+    > 6), face counts that no range count divides, and range counts up to
+    the kernel's most, 32."""
+    pc, rr, fvz, fvi, valid = _split_case(case)
+    ref = kd.deftet_topk_plain(pc, rr, fvz, fvi, valid, knum, 1e-8)
+    for splits in (1, 3, 4, 16, 32):
+        out = _split_merge_plain(pc, rr, fvz, fvi, valid, knum, 1e-8,
+                                 splits)
+        assert torch.equal(out, ref), splits
+    assert int((ref >= 0).sum()) > 0
+    if case == 'signed_zero':
+        assert (ref[0, :, :6] == torch.tensor([5, 1, 3, 0, 2, 4])[:knum]).all()
+        assert (ref[..., 6:] == -1).all()
+
+
 @pytest.mark.parametrize('kind,dtype', [('random', np.float64),
                                         ('terraced', np.float32)])
 def test_valid_faces_and_list_features(kind, dtype):

@@ -106,35 +106,103 @@ def _cloud(kind, n, rng):
     return s / np.linalg.norm(s, axis=-1, keepdims=True)
 
 
-def _scan_ranges(p1s, orig1, p2s, orig2, starts, nums, keep, n1, n2):
-    """The pruned kernel's scan, written out: each tile of sorted queries
-    over the kept chunks of its range, ties to the lowest original index,
-    written back in the original order."""
+def _gap2(q, lo, hi):
+    """The pruned kernel's squared gap from points ``q`` to boxes [lo, hi],
+    formed as its distance is (float32)."""
+    g = torch.maximum(torch.maximum(lo - q, q - hi), torch.zeros_like(q))
+    return (g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1]) \
+        + g[..., 2] * g[..., 2]
+
+
+def _outward(d):
+    """The visit rank of an offset d from a start: 0, -1, +1, -2, ... ->
+    0, 1, 2, 3, ..."""
+    return torch.where(d >= 0, 2 * d, -2 * d - 1)
+
+
+def _key_range(pts, best, frame):
+    """(C1,) int64 bounds [key(L), key(H)] of each tile's walk: the sort
+    keys (as references) of the corners of the tile's query box grown by
+    h, the least float with h*h above the tile's largest best, each corner
+    one float further out; the whole key range where that best is inf."""
+    worst = best.amax(dim=1)
+    fin = worst < float('inf')
+    h = torch.where(fin, worst, 0.).sqrt().clamp(min=1e-18)
+    while True:
+        low = ~(h * h > torch.where(fin, worst, 0.))
+        if not bool(low.any()):
+            break
+        h = torch.where(low, torch.nextafter(h, torch.tensor(float('inf'))),
+                        h)
+    lo, span = frame[:, 0:1, :3], frame[:, 1:2, :3]
+    corner_l = torch.nextafter(pts.amin(dim=1) - h[:, None],
+                               torch.tensor(float('-inf')))
+    corner_h = torch.nextafter(pts.amax(dim=1) + h[:, None],
+                               torch.tensor(float('inf')))
+    klo = kn._keys(corner_l[None], lo, span, 1, 1)[0]
+    khi = kn._keys(corner_h[None], lo, span, 1, 1)[0]
+    return (torch.where(fin, klo, -(1 << 31)),
+            torch.where(fin, khi, (1 << 31) - 1))
+
+
+def _scan_plain(skeys, qrec, rrec, rbox, frame, n1, n2):
+    """The pruned kernel's scan of one batch entry, written out: each tile
+    of TQ sorted queries finds its middle query's place c0 among the
+    sorted references and visits the chunks 0, -1, +1, -2, ... away from
+    c0's; it scans a chunk unless every query's gap to its box exceeds the
+    query's best distance so far (the kernel's test against the tile's box
+    skips nothing more) or the chunk's keys (its box's w) all lie outside
+    the tile's :func:`_key_range` (where the kernel's walk ends), and
+    keeps the
+    smallest (distance, original index). Returns (indices in the original
+    order, chunks scanned, chunks the key range skipped)."""
+    C1, C2 = qrec.shape[1] // kn.TQ, rbox.shape[1]
+    q = qrec[0].reshape(C1, kn.TQ, 4)
+    pts = q[..., :3]
+    refs = rrec[0].reshape(C2, kn.CH, 4)
+    rorig = refs[..., 3].contiguous().view(torch.int32).long()
+    sb = kn._key_bits(1)[0]
+    mid = (torch.arange(C1) * kn.TQ + kn.TQ // 2).clamp(max=n1 - 1)
+    target = skeys[mid].long() + (1 << (32 - sb))
+    c0 = (torch.searchsorted(skeys[n1:n1 + n2].long(), target)
+          // kn.CH).clamp(max=C2 - 1)[:, None]
+    order = torch.argsort(_outward(torch.arange(C2)[None] - c0), dim=1)
+    best = torch.full((C1, kn.TQ), float('inf'))
+    bo = torch.full((C1, kn.TQ), kn._PAD_ORIG, dtype=torch.long)
+    scanned = beyond = 0
+    for v in range(C2):
+        c = order[:, v]
+        box = rbox[0, c, :, :3]
+        gap = _gap2(pts, box[:, None, 0], box[:, None, 1])
+        klo, khi = _key_range(pts, best, frame)
+        first, last = rbox[0, c, :, 3].contiguous().view(torch.int32).unbind(1)
+        out_of_range = (first > khi) | (last < klo)
+        need = (~(gap > best)).any(dim=1) & ~out_of_range
+        beyond += int(out_of_range.sum())
+        d = kn._sq_dist(pts[:, :, None], refs[c][:, None, :, :3])
+        dmin = d.amin(dim=-1)
+        o = torch.where(d == dmin[..., None], rorig[c][:, None],
+                        torch.iinfo(torch.int64).max).amin(dim=-1)
+        take = need[:, None] & ((dmin < best) | ((dmin == best) & (o < bo)))
+        best = torch.where(take, dmin, best)
+        bo = torch.where(take, o, bo)
+        scanned += int(need.sum())
     out = torch.zeros(n1, dtype=torch.int32)
-    for tile in range(starts.shape[1]):
-        q = p1s[0, tile * kn.T1:(tile + 1) * kn.T1]
-        c0 = int(starts[0, tile])
-        chunks = [c for c in range(c0, c0 + int(nums[0, tile]))
-                  if keep[0, tile, c]]
-        rows = torch.cat([torch.arange(c * kn.T2, (c + 1) * kn.T2)
-                          for c in chunks])
-        d = kn._sq_dist(q[:, None], p2s[0, None, rows])
-        o = orig2[0, rows].long()
-        best = d.amin(dim=1, keepdim=True)
-        win = torch.where(d == best, o, torch.iinfo(torch.int64).max)
-        win = win.amin(dim=1)
-        mine = orig1[0, tile * kn.T1:(tile + 1) * kn.T1].long()
-        real = mine < n1
-        out[mine[real]] = torch.where(win < n2, win, 0)[real].to(torch.int32)
-    return out
+    qorig = q[..., 3].contiguous().view(torch.int32).long()
+    real = qorig < n1
+    win = torch.where((best < float('inf')) & (bo < n2), bo, 0)
+    out[qorig[real]] = win[real].to(torch.int32)
+    return out, scanned, beyond
 
 
 @pytest.mark.parametrize('kind', ['uniform', 'clusters', 'sphere'])
 def test_pruned_prepass_covers_every_winner(kind):
-    """The prepass keeps, in the chunk range of every query tile, the
-    chunk of each query's brute-force winner and of every reference tied
-    with it, and the scan over the kept chunks gives brute force's
-    indices."""
+    """The prepass's chunk boxes never rule out the chunk of a query's
+    brute-force winner or of any reference tied with it: the kernel's gap
+    from the query, and from its tile's box, to that chunk's box is at most
+    the winning distance. The scan over them gives brute force's indices
+    and skips chunks, some of them by the sort-key range where the
+    kernel's walk ends."""
     rng = np.random.default_rng(11)
     n1, n2 = 2000, 17000
     p1 = _cloud(kind, n1, rng).astype(np.float32)
@@ -142,23 +210,32 @@ def test_pruned_prepass_covers_every_winner(kind):
     p2[:, n2 - 1000:] = p2[:, :1000]            # exact duplicates
     t1, t2 = _t(p1, p2)
     brute = kn.nearest_idx_plain(t1, t2)[0].long()
-    p1s, orig1, p2s, orig2, starts, nums, keep = kn._pruned_ranges(t1, t2)
+    skeys, order, qrec, rrec, rbox, frame = kn.prepass(t1, t2)
     pos1 = torch.empty(n1, dtype=torch.long)
-    pos1[orig1[0, :n1].long()] = torch.arange(n1)
+    pos1[order[:n1]] = torch.arange(n1)
     pos2 = torch.empty(n2, dtype=torch.long)
-    pos2[orig2[0, :n2].long()] = torch.arange(n2)
-    tile = pos1 // kn.T1
-    lo, n = starts[0, tile].long(), nums[0, tile].long()
+    pos2[order[n1:] - n1] = torch.arange(n2)
     d = kn._sq_dist(t1[0, :, None], t2[0, None])
-    tied = d == d.gather(1, brute[:, None])
-    chunk = (pos2 // kn.T2)[None].expand(n1, -1)
-    inside = (chunk >= lo[:, None]) & (chunk < (lo + n)[:, None])
-    kept = keep[0, tile[:, None].expand(-1, n2), chunk].bool()
-    assert bool((inside & kept)[tied].all())
+    win = d.gather(1, brute[:, None])
+    tied = d == win
+    qi, ri = tied.nonzero(as_tuple=True)
+    box = rbox[0, pos2[ri] // kn.CH, :, :3]
+    gap = _gap2(t1[0, qi], box[:, 0], box[:, 1])
+    assert bool((gap <= win[qi, 0]).all())
+    tiles = qrec[0, :, :3].reshape(-1, kn.TQ, 3)
+    tile = pos1[qi] // kn.TQ
+    tgap = torch.maximum(torch.maximum(box[:, 0] - tiles.amax(dim=1)[tile],
+                                       tiles.amin(dim=1)[tile] - box[:, 1]),
+                         torch.zeros(()))
+    tgap = (tgap[..., 0] * tgap[..., 0] + tgap[..., 1] * tgap[..., 1]) \
+        + tgap[..., 2] * tgap[..., 2]
+    assert bool((tgap <= gap).all())
     assert int(tied.sum()) > n1                      # the duplicates tie
-    assert float(keep.float().mean()) < 1.
-    scan = _scan_ranges(p1s, orig1, p2s, orig2, starts, nums, keep, n1, n2)
+    scan, scanned, beyond = _scan_plain(skeys, qrec, rrec, rbox, frame, n1,
+                                        n2)
     assert torch.equal(scan, brute.to(torch.int32))
+    assert scanned < tiles.shape[0] * rbox.shape[1]
+    assert beyond > 0
 
 
 # ------------------------------------------------- sided, chamfer, f-score

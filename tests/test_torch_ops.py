@@ -266,4 +266,18 @@ def test_ctypes_signatures_match_sources():
         for name, argtypes in mod._SIGNATURES.items():
             assert entry[name] == argtypes, name
             seen += 1
-    assert seen == len(entry) == 13
+    assert seen == len(entry) == 17
+
+
+def test_nn_layout_matches_source():
+    """The pruned scan's layout in ``nn_distance.py`` (which sizes the
+    buffers and forms the plain prepass) is the one its CUDA source
+    declares, as loading the library also checks on the card."""
+    import re
+    from kaolin_tpu_torch.kernels import nn_distance
+    text = (ROOT / 'kaolin_tpu_torch' / 'csrc' / 'nn_distance.cu').read_text()
+    consts = {}
+    for name, expr in re.findall(r'constexpr int (\w+) = ([^;]+);', text):
+        consts[name] = eval(expr, {}, dict(consts))
+    assert tuple(consts[k] for k in ('TQ', 'CH', 'EXT_BLOCKS', 'PAD_ORIG')) \
+        == nn_distance._LAYOUT
