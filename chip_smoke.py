@@ -88,7 +88,15 @@ Output: the card line from ``nvidia-smi``, one line per check, a JSON line
 failed check raises and the script exits non-zero without the last line.
 It exits non-zero at once when no CUDA card is visible.
 
-``python3 chip_smoke.py --compare LABEL`` instead times only
+The two render backwards are also held against their plain versions on a
+large-faces scene (an icosphere of subdivision 1, 80 faces at batch 4,
+brought near enough to cover about 0.9 of the image), and the counts that
+size their designs are logged for each size (``backward counts`` lines).
+
+``python3 chip_smoke.py --compare LABEL`` instead prints ``nvcc -Xptxas
+-v`` for the two render backwards' sources and times only both render
+backwards (bench, config 2 and the large-faces scene; rasterize at D = 4
+and 40), the bench and config 2 train steps (with their device time),
 ``grid_sample``, ``F.grid_sample``, ``p2m_select`` on its three scenes,
 ``nearest_idx_pruned`` on config 3, the sphere-centre scene and two
 clouds of NN_BIG points, ``deftet_topk`` on config 4 at knum 30 and 300
@@ -99,6 +107,7 @@ parent's checkout to time it there.
 """
 
 import ctypes
+import inspect
 import json
 import math
 import subprocess
@@ -129,6 +138,12 @@ from kaolin_tpu_torch.render.mesh.utils import _clip, _uv_coords
 SEED = 0
 H = W = 512
 SIZES = (('bench', 4, 3), ('config2', 8, 5))   # (name, batch, subdiv)
+# the backward kernels' large-faces scene: an icosphere of subdivision 1
+# (80 faces) at batch 4, scaled by LARGE_SCALE, as near as cameras at
+# 3.04 / 1.35 = 2.25 from its centre would see it (at 1.5 the 45-degree
+# fovy sees no background and the soft mask has no pair); each face's
+# rectangle spans tens of thousands of pixels
+LARGE, LARGE_SCALE = ('large_faces', 4, 1), 1.35
 WIDE = 40                                      # features of the wide route
 KNUM = 30                                      # dibr_soft_mask default
 TIME_ITERS = 20
@@ -358,10 +373,11 @@ def disc(device):
 class Scene:
     """One size: the scene, its prepared vertices and the kernels' inputs."""
 
-    def __init__(self, name, batch, subdiv, device):
+    def __init__(self, name, batch, subdiv, device, scale=1.):
         self.name, self.batch = name, batch
         verts, faces, rot, trans, proj = kt.utils.interop.scene(
             batch, subdiv, device=device)
+        verts = verts * scale
         self.args = (verts, faces, rot, trans, proj)
         self.faces = faces
         self.num_faces = faces.shape[0]
@@ -372,8 +388,9 @@ class Scene:
         self.target = disc(device).expand(batch, H, W)
         fvc, fvi, fn = kt.render.mesh.prepare_vertices(
             verts, faces, proj, camera_rot=rot, camera_trans=trans)
+        self.valid = fn[..., 2] >= 0.
         self.fz, self.img, self.bbox = _kernel_inputs(
-            fvc[..., 2], fvi, fn[..., 2] >= 0., 1000.)
+            fvc[..., 2], fvi, self.valid, 1000.)
         self.feat4 = self.features(fvc, 4).reshape(batch, -1, 12)
         self.sm_img, self.sm_bbox = _scaled_inputs(fvi, 0.02, 1000.)
         self.fvc, self.fvi = fvc, fvi.reshape(batch, -1, 6)
@@ -729,6 +746,7 @@ def backward_phases(sc):
 
     def timed(key, fn, plain, bnd, plain_batch):
         times[key] = dict(ms=time_ms(fn, TIME_ITERS),
+                          device_ms=device_ms(f'[{sc.name}] {key}', fn),
                           plain_ms=time_ms(plain, plain_iters),
                           bound_ms=bnd[0], bound_by=bnd[1])
         log(f'[{sc.name}] time {key} (train cotangents; plain version at '
@@ -741,10 +759,12 @@ def backward_phases(sc):
             multiplier=1000., eps=1e-8)
         g_feat, g_mask, _ = sc.cotangents(dim)
         rand = torch.randn(g_feat.shape, device='cuda', generator=gen)
+        # the forward's culling, as the train step passes it
+        vkw = dict(eps=1e-8, valid_faces=sc.valid)
         for cot_name, cot in (('random', rand), ('train', g_feat)):
             args = (cot, idx, weights, sc.fvi, feats)
-            out = krb.rasterize_backward(*args, eps=1e-8)
-            again = krb.rasterize_backward(*args, eps=1e-8)
+            out = krb.rasterize_backward(*args, **vkw)
+            again = krb.rasterize_backward(*args, **vkw)
             ref = krb.rasterize_backward_plain(*args, eps=1e-8)
             torch.cuda.synchronize()
             errs['rasterize_backward'] = max(
@@ -752,7 +772,7 @@ def backward_phases(sc):
                     f'[{sc.name}] rasterize_backward D={dim} {cot_name} '
                     'cotangent', out, again, ref))
         timed('rasterize_backward' + ('' if dim == 4 else f' D={dim}'),
-              lambda: krb.rasterize_backward(*args, eps=1e-8),
+              lambda: krb.rasterize_backward(*args, **vkw),
               lambda: krb.rasterize_backward_plain(*args, eps=1e-8),
               raster_bwd_bound(sc, idx, dim), sc.batch)
 
@@ -779,6 +799,139 @@ def backward_phases(sc):
                                               **skw),
           soft_bwd_bound(sc.sm_bbox, cut, g_mask, KNUM), nb)
     return errs, times
+
+
+def pixel_rects(x0, x1, y0, y1, sx, sy):
+    """Per face, the pixel rectangle the backward kernels walk: the columns
+    and rows whose centres ``s * (2i + 1 - n)`` can lie in [x0, x1) x
+    [y0, y1), padded by one, clipped to the image. Returns (c0, c1, r0,
+    r1), empty where c1 < c0 or r1 < r0."""
+    def span(v0, v1, s, n):
+        lo = torch.floor((v0 / s + (n - 1)) * 0.5) - 1
+        hi = torch.ceil((v1 / s + (n - 1)) * 0.5) + 1
+        return lo.clamp(0, n).long(), hi.clamp(-1, n - 1).long()
+    c0, c1 = span(x0, x1, sx, W)
+    r0, r1 = span(-y1, -y0, sy, H)
+    return c0, c1, r0, r1
+
+
+def rect_sums(table, rects):
+    """Per face, the sum of ``table`` (B, H, W) over its rectangle, from an
+    integral image."""
+    B = table.shape[0]
+    c0, c1, r0, r1 = rects
+    s = F.pad(table.long().cumsum(1).cumsum(2), (1, 0, 1, 0))
+    b = torch.arange(B, device=table.device)[:, None]
+    c1, r1 = torch.maximum(c1, c0 - 1) + 1, torch.maximum(r1, r0 - 1) + 1
+    return s[b, r1, c1] - s[b, r0, c1] - s[b, r1, c0] + s[b, r0, c0]
+
+
+def backward_counts(sc):
+    """The counts that size the backward kernels' designs, at the train
+    step's cotangents (D = 4, knum 30): the faces that own a covered pixel,
+    the faces whose enlarged rectangle holds a live pixel (uncovered, inside
+    some face's enlarged bbox, nonzero cotangent), the pixels per face of
+    both rectangles (mean, 99th percentile), the recorded (pixel, face)
+    pairs and the candidates the soft-mask backward tests (live pixels in
+    each face's rectangle)."""
+    _, g_mask, idx = sc.cotangents(4)
+    B, F_ = sc.batch, sc.num_faces
+    flat = idx.reshape(B, -1).long()
+    seg = (torch.arange(B, device='cuda')[:, None] * F_ + flat)[flat >= 0]
+    owned = torch.bincount(seg, minlength=B * F_)
+    v = sc.fvi.reshape(B, F_, 3, 2)
+    one = torch.tensor(1., device='cuda')
+    rast = pixel_rects(v[..., 0].amin(-1), v[..., 0].amax(-1),
+                       v[..., 1].amin(-1), v[..., 1].amax(-1), one / W,
+                       one / H)
+    bb = sc.sm_bbox
+    soft = pixel_rects(bb[..., 0], bb[..., 2], bb[..., 1], bb[..., 3],
+                       torch.tensor(1000. / W, device='cuda'),
+                       torch.tensor(1000. / H, device='cuda'))
+    hits = pixel_hits(bb, H, W) * (idx < 0)
+    live = (hits > 0) & (g_mask != 0)
+    cand = rect_sums(live, soft)
+    counts = {
+        'faces': B * F_,
+        'faces owning a covered pixel': float((owned > 0).float().mean()),
+        'owned pixels per owning face': float(owned[owned > 0].float()
+                                              .mean()),
+        'faces whose enlarged rectangle holds a live pixel':
+            float((cand > 0).float().mean()),
+        'live pixels': int(live.sum()),
+        'recorded pairs': int(hits.clamp(max=KNUM).sum()),
+        'recorded pairs at live pixels': int(hits.clamp(max=KNUM)[live]
+                                             .sum()),
+        'soft-mask candidates (live pixels in rectangles)': int(cand.sum())}
+    for name, (c0, c1, r0, r1) in (('rasterize', rast), ('soft mask', soft)):
+        n = ((c1 - c0 + 1).clamp(min=0) * (r1 - r0 + 1).clamp(min=0)).float()
+        counts[f'{name} rectangle pixels, mean'] = float(n.mean())
+        counts[f'{name} rectangle pixels, p99'] = float(
+            torch.quantile(n.flatten(), 0.99))
+    log(f'[{sc.name}] backward counts: ' + json.dumps(counts))
+    return counts
+
+
+def resource_usage(names=('rasterize_bwd', 'soft_mask')):
+    """``nvcc -Xptxas -v`` for ``csrc/<name>.cu`` with the build's flags:
+    each kernel's registers, spills and shared memory, logged."""
+    flags = [f for f in _build.NVCC_FLAGS
+             if f not in ('-shared', '-Xcompiler', '-fPIC')]
+    for name in names:
+        src = _build._CSRC / f'{name}.cu'
+        out = _build._BUILD_DIR / f'{name}.ptxas.cubin'
+        out.parent.mkdir(parents=True, exist_ok=True)
+        res = subprocess.run([_build._nvcc(), *flags, '-cubin', '-Xptxas',
+                              '-v', '-o', str(out), str(src)],
+                             capture_output=True, text=True, timeout=600)
+        for line in (res.stdout + res.stderr).splitlines():
+            if 'ptxas info' in line or 'spill' in line:
+                log(f'[ptxas {name}] {line.strip()}')
+        expect(res.returncode == 0, f'nvcc -Xptxas -v failed on {name}.cu')
+
+
+def backward_times(label, sc):
+    """Both backward kernels at the train step's cotangents on ``sc``,
+    rasterize at D = 4 and D = WIDE, the soft mask at knum KNUM, each timed
+    with CUDA events and by the card alone. Returns {name: times}."""
+    out = {}
+    skw = dict(height=H, width=W, sigmainv=7000., multiplier=1000.)
+    for dim in (4, WIDE):
+        feats = sc.features(sc.fvc, dim).reshape(sc.batch, -1, 3 * dim)
+        _, idx, weights = kr.rasterize_interp(
+            sc.fz, sc.img, sc.bbox, feats, height=H, width=W,
+            multiplier=1000., eps=1e-8)
+        g_feat, g_mask, _ = sc.cotangents(dim)
+        args = (g_feat, idx, weights, sc.fvi, feats)
+        # the forward's culling, as the train step passes it, where the
+        # wrapper takes it
+        vkw = ({'valid_faces': sc.valid} if 'valid_faces' in
+               inspect.signature(krb.rasterize_backward).parameters else {})
+
+        def fn():
+            return krb.rasterize_backward(*args, eps=1e-8, **vkw)
+        key = f'rasterize_backward D={dim}, {sc.name}'
+        out[key] = dict(ms=time_ms(fn, TIME_ITERS),
+                        device_ms=device_ms(f'[{label}] {key}', fn))
+    mask, cut = ks.soft_mask_forward(sc.sm_img, sc.sm_bbox, idx, knum=KNUM,
+                                     return_cut=True, **skw)
+
+    def soft():
+        return ks.soft_mask_backward(sc.sm_img, sc.sm_bbox, cut, mask,
+                                     g_mask, **skw)
+    key = f'soft_mask_backward, {sc.name}'
+    out[key] = dict(ms=time_ms(soft, TIME_ITERS),
+                    device_ms=device_ms(f'[{label}] {key}', soft))
+    return out
+
+
+def train_step_times(label, sc):
+    """``bench.py``'s train step on ``sc``: ms per step over TRAIN_STEPS
+    chained steps (CUDA events) and the card's own time per step."""
+    ms = time_ms(lambda: sc.train(TRAIN_STEPS), 1) / TRAIN_STEPS
+    return dict(ms=ms, device_ms=device_ms(f'[{label}] train step, '
+                                           f'{sc.name}', lambda: sc.train(1),
+                                           iters=5))
 
 
 def grid_sample_checks(label, maps, ix, iy, cots, errs):
@@ -2429,7 +2582,10 @@ def check_pack_ops_against_cpu(hits):
 def compare(label):
     """``--compare LABEL``: the timings that set two checkouts side by side,
     through the phase functions above, which call only what every revision
-    of the port since config 4 has: ``sampler_times`` at config 2's step,
+    of the port since config 4 has: ``resource_usage``, the design counts,
+    ``backward_times`` and ``train_step_times`` on the bench and config 2
+    sizes (the backwards also on the large-faces scene), ``sampler_times``
+    at config 2's step,
     the textured step, ``p2m_times`` on ``p2m_scenes``, ``nn_times`` on
     config 3 and the sphere-centre scene, ``nn_big_times``, the config 3
     step (``metrics_path``), ``deftet_times`` on config 4 at knum 30 and
@@ -2445,6 +2601,16 @@ def compare(label):
     def report(name, values):
         log(json.dumps({'tree': label, 'name': name, **values}))
 
+    resource_usage()
+    for name, b, s in (*SIZES, LARGE):
+        sc = Scene(name, b, s, 'cuda',
+                   LARGE_SCALE if (name, b, s) == LARGE else 1.)
+        backward_counts(sc)
+        for key, t in backward_times(label, sc).items():
+            report(key, t)
+        if (name, b, s) != LARGE:
+            report(f'train_step, {name}', train_step_times(label, sc))
+        del sc
     tsc = TexturedScene(TEX_BATCH, TEX_SUBDIV, TEX_SIZE, H, W, 'cuda')
     tex, ix, iy, _ = tsc.sampler_inputs()
     report('grid_sample', sampler_times(f'[{label}]', tex, ix, iy))
@@ -2496,6 +2662,12 @@ def main():
         times[sc.name].update(bwd_times)
         for name, err in {**sc_errs, **bwd_errs}.items():
             errs[name] = max(errs[name], err)
+    large = Scene(*LARGE, 'cuda', LARGE_SCALE)
+    for sc in (*scenes, large):
+        backward_counts(sc)
+    for name, err in backward_phases(large)[0].items():
+        errs[name] = max(errs[name], err)
+    del large
     tex_errs, tex_times = texture_phases(tsc)
     errs.update(tex_errs)
     m3_errs, m3_times, prepass_ms = metrics_kernel_phases()

@@ -26,7 +26,7 @@ __all__ = ['rasterize_backward', 'rasterize_backward_plain']
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    'rasterize_backward': [_P] * 7 + [_I] * 7 + [_F, _I, _P],
+    'rasterize_backward': [_P] * 8 + [_I] * 7 + [_F, _I, _P],
 }
 
 
@@ -36,6 +36,20 @@ def rasterize_backward_plain(grad_features, face_idx, weights,
     """Plain version of :func:`rasterize_backward`, over the covered
     pixels; per-face sums with ``index_add_``."""
     img, feats = face_vertices_image_flat, face_features_flat
+    B, F, _ = img.shape
+    D = feats.shape[-1] // 3
+    seg, grad_img_pix, grad_feat_pix = _pixel_terms(
+        grad_features, face_idx, weights, img, feats, eps)
+    grad_img = img.new_zeros((B * F, 6)).index_add_(0, seg, grad_img_pix)
+    grad_feat = feats.new_zeros((B * F, 3 * D)).index_add_(
+        0, seg, grad_feat_pix)
+    return grad_img.reshape(B, F, 6), grad_feat.reshape(B, F, 3 * D)
+
+
+def _pixel_terms(grad_features, face_idx, weights, img, feats, eps):
+    """Each covered pixel's terms, in (batch, pixel) order: (its face's
+    row b * F + f of the flat gradients, (N, 6) image-vert terms, (N, 3D)
+    feature terms)."""
     B, F, _ = img.shape
     D = feats.shape[-1] // 3
     b, pix = (face_idx.reshape(B, -1) >= 0).nonzero(as_tuple=True)
@@ -89,11 +103,7 @@ def rasterize_backward_plain(grad_features, face_idx, weights,
         g1 * dw1dq + g2 * dw2dq,
     ], dim=-1)
     grad_feat_pix = torch.stack([aw, bw, cw], -1)[..., None] * g[:, None]
-
-    grad_img = img.new_zeros((B * F, 6)).index_add_(0, seg, grad_img_pix)
-    grad_feat = feats.new_zeros((B * F, 3 * D)).index_add_(
-        0, seg, grad_feat_pix.reshape(-1, 3 * D))
-    return grad_img.reshape(B, F, 6), grad_feat.reshape(B, F, 3 * D)
+    return seg, grad_img_pix, grad_feat_pix.reshape(-1, 3 * D)
 
 
 def _lib():
@@ -102,7 +112,8 @@ def _lib():
 
 def rasterize_backward(grad_features, face_idx, weights,
                        face_vertices_image_flat, face_features_flat,
-                       row_start=0, *, total_height=None, eps):
+                       row_start=0, *, total_height=None, eps,
+                       valid_faces=None):
     """Gradients of rasterization with respect to the image verts and the
     features.
 
@@ -116,6 +127,8 @@ def rasterize_backward(grad_features, face_idx, weights,
             forward; the kernel uses them only to find each face's pixels
             from its bbox.
         eps: the forward's barycentric epsilon.
+        valid_faces: optional (B, F) bool, the forward's culling; the
+            kernel skips the culled faces, which own no pixel.
 
     Returns:
         (grad image verts (B, F, 6), grad features (B, F, 3*D)).
@@ -138,9 +151,16 @@ def rasterize_backward(grad_features, face_idx, weights,
                         feat, (B, F, 3 * D))
     grad_img = img.new_empty((B, F, 6))
     grad_feat = img.new_empty((B, F, 3 * D))
+    if B * F == 0:
+        return grad_img, grad_feat
+    valid = None
+    if valid_faces is not None:
+        valid = torch.broadcast_to(valid_faces, (B, F)).to(
+            device=img.device, dtype=torch.uint8).contiguous()
     _build.launch(
         _lib(), 'rasterize_backward', grad.data_ptr(), idx.data_ptr(),
-        wts.data_ptr(), img.data_ptr(), feat.data_ptr(), grad_img.data_ptr(),
+        wts.data_ptr(), img.data_ptr(), feat.data_ptr(),
+        None if valid is None else valid.data_ptr(), grad_img.data_ptr(),
         grad_feat.data_ptr(), B, F, H, W, D, int(row_start),
         int(total_height), eps, dev, stream)
     rasterize_backward.launches += 1

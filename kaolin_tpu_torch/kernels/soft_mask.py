@@ -35,7 +35,7 @@ _EPS = 1e-7
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     'soft_mask_forward': [_P] * 5 + [_I] * 7 + [_F] * 5 + [_I, _P],
-    'soft_mask_backward': [_P] * 6 + [_I] * 6 + [_F] * 5 + [_I, _P],
+    'soft_mask_backward': [_P] * 7 + [_I] * 6 + [_F] * 5 + [_I, _P],
 }
 _PLAIN_BUDGET = 1 << 24
 
@@ -276,10 +276,16 @@ def soft_mask_backward(img_scaled, bboxes, cut, soft_mask, grad_soft_mask,
                         (B, F, 4), cut, (B, height, width), mask,
                         (B, height, width), grad, (B, height, width))
     grad_img = img.new_empty((B, F, 6))
+    if B * F == 0:
+        return grad_img
+    # the kernel's live bitmap: a bit a pixel, 32 a word along the row
+    live = torch.empty((B, height, (width + 31) // 32), dtype=torch.int32,
+                       device=img.device)
     _build.launch(
         _lib(), 'soft_mask_backward', img.data_ptr(), bbox.data_ptr(),
-        cut.data_ptr(), mask.data_ptr(), grad.data_ptr(), grad_img.data_ptr(),
-        B, F, height, width, int(row_start), int(total_height),
+        cut.data_ptr(), mask.data_ptr(), grad.data_ptr(), live.data_ptr(),
+        grad_img.data_ptr(), B, F, height, width, int(row_start),
+        int(total_height),
         _build.pixel_scale(multiplier, width),
         _build.pixel_scale(multiplier, total_height), sigmainv, multiplier,
         4. * multiplier * multiplier, dev, stream)

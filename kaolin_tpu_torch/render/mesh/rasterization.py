@@ -87,8 +87,11 @@ class _Rasterize(torch.autograd.Function):
             height, width, multiplier, eps, total_height, face_vertices_z,
             face_vertices_image, face_features, valid_faces, row_start)
         ctx.mark_non_differentiable(face_idx)
+        # the culled faces, which own no pixel, for the backward to skip
+        valid = (None if valid_faces is None
+                 else valid_faces.to(face_vertices_image.dtype) > 0)
         ctx.save_for_backward(face_idx, weights, face_vertices_image,
-                              face_features)
+                              face_features, valid)
         ctx.eps, ctx.row_start, ctx.total_height = eps, row_start, \
             total_height
         return features, face_idx
@@ -96,7 +99,7 @@ class _Rasterize(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_features, grad_face_idx):
-        face_idx, weights, face_vertices_image, face_features = \
+        face_idx, weights, face_vertices_image, face_features, valid = \
             ctx.saved_tensors
         B, F = face_vertices_image.shape[:2]
         D = face_features.shape[-1]
@@ -107,7 +110,7 @@ class _Rasterize(torch.autograd.Function):
             grad_features.contiguous(), face_idx, weights,
             face_vertices_image.reshape(B, F, 6),
             face_features.reshape(B, F, 3 * D), ctx.row_start,
-            total_height=ctx.total_height, eps=ctx.eps)
+            total_height=ctx.total_height, eps=ctx.eps, valid_faces=valid)
         return (None, grad_img.reshape(B, F, 3, 2),
                 grad_feat.reshape(B, F, 3, D)) + (None,) * 7
 

@@ -203,6 +203,129 @@ def test_soft_mask_backward_kernel_matches_plain(cuda, knum):
                                                  **kw))
 
 
+def _bwd_scene(device, case, dim=4, faces=40):
+    """A scene of the backward kernels' walks (as
+    ``tests/test_torch_render_bwd.py`` writes them out): (fvz, fvi,
+    features, valid, H, W, row_start, total height). 'whole': a sliver
+    along the diagonal, whose rectangle is the whole 72x72 image, in
+    front; 'unowned': faces off screen and culled; 'slab': rows 10..21 of
+    a 32-row image; 'big': faces larger than a warp's share, which take
+    the whole block; 'many8k', 'many64k': 8,192 or 65,536 small faces a
+    batch entry, so that a warp culls 4 or 32 faces at once; else random
+    faces."""
+    rng = np.random.default_rng(21)
+    H = W = 48
+    row_start, total = 0, None
+    size = 0.6 if case == 'big' else 0.2
+    if case.startswith('many'):
+        faces, size, H, W = {'many8k': 8192, 'many64k': 65536}[case], 0.03, 64, 64
+    fvi = (rng.uniform(-0.9, 0.9, (2, faces, 1, 2))
+           + rng.uniform(-size, size, (2, faces, 3, 2)))
+    fvz = -1. - rng.random((2, faces, 3))
+    valid = np.ones((2, faces), bool)
+    if case == 'whole':
+        fvi[:, 0] = [[-1.2, -1.2], [1.2, 1.2], [1.2, 1.1]]
+        fvz[:, 0] = -0.5
+        H = W = 72
+    elif case == 'unowned':
+        fvi[:, :6] += 3.
+        valid[:, 6:14] = False
+    elif case == 'slab':
+        H, row_start, total = 12, 10, 32
+    elif case == 'big':
+        H = W = 96
+    ff = rng.standard_normal((2, faces, 3, dim))
+    fvz, fvi, ff = (torch.tensor(a, dtype=torch.float32, device=device)
+                    for a in (fvz, fvi, ff))
+    return (fvz, fvi, ff, torch.tensor(valid, device=device), H, W,
+            row_start, total or H)
+
+
+@pytest.mark.parametrize('case,dim', [('soup', 1), ('soup', 9),
+                                      ('whole', 4), ('whole', 40),
+                                      ('unowned', 4), ('slab', 40),
+                                      ('big', 4), ('big', 70),
+                                      ('many8k', 4), ('many64k', 40)])
+def test_rasterize_backward_scenes(cuda, case, dim):
+    """The redesigned rasterize backward against its plain version, two
+    launches bit-identical: a face whose rectangle is the whole image,
+    faces that own no pixel, slab rows, faces that take the whole block,
+    warps that cull 4 and 32 faces, D = 1, 9, 40 (one walk) and 70 (two
+    walks)."""
+    fvz, fvi, ff, valid, H, W, row_start, total = _bwd_scene(cuda, case, dim)
+    B, F = fvi.shape[:2]
+    fz, img, bbox = _kernel_inputs(fvz, fvi, valid, 1000.)
+    feats = ff.reshape(B, F, 3 * dim)
+    slab = dict(row_start=row_start, total_height=total)
+    _, idx, weights = kr.rasterize_interp_plain(
+        fz, img, bbox, feats, height=H, width=W, multiplier=1000., eps=1e-8,
+        **slab)
+    grad = torch.randn(B, H, W, dim, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(2))
+    args = (grad, idx, weights, fvi.reshape(B, F, 6), feats)
+    n = krb.rasterize_backward.launches
+    out = krb.rasterize_backward(*args, eps=1e-8, **slab)
+    again = krb.rasterize_backward(*args, eps=1e-8, **slab)
+    assert krb.rasterize_backward.launches == n + 2
+    ref = krb.rasterize_backward_plain(*args, eps=1e-8)
+    for o, a, r in zip(out, again, ref):
+        assert torch.equal(o, a)
+        _grad_close(o, r)
+    if case == 'unowned':
+        assert not out[0][:, :14].any() and not out[1][:, :14].any()
+
+
+@pytest.mark.parametrize('case,knum', [('whole', 30), ('unowned', 2),
+                                       ('slab', 1), ('big', 30),
+                                       ('soup', 30), ('many8k', 30),
+                                       ('many64k', 30)])
+def test_soft_mask_backward_scenes(cuda, case, knum):
+    """The redesigned soft-mask backward against its plain version, two
+    launches bit-identical, on the same scenes (boxlen 0.05), knum 1, 2
+    and 30, a zero cotangent on every third column."""
+    fvz, fvi, ff, valid, H, W, row_start, total = _bwd_scene(cuda, case)
+    B = fvi.shape[0]
+    _, idx = kt.render.mesh.rasterize(H, W, fvz, fvi, ff, valid,
+                                      row_start=row_start,
+                                      total_height=total)
+    img, bbox = _scaled_inputs(fvi, 0.05, 1000.)
+    kw = dict(row_start=row_start, height=H, width=W, total_height=total,
+              sigmainv=7000., multiplier=1000.)
+    mask, cut = ks.soft_mask_forward(img, bbox, idx, knum=knum,
+                                     return_cut=True, **kw)
+    grad = torch.randn(B, H, W, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(3))
+    grad[..., ::3] = 0.
+    n = ks.soft_mask_backward.launches
+    out = ks.soft_mask_backward(img, bbox, cut, mask, grad, **kw)
+    again = ks.soft_mask_backward(img, bbox, cut, mask, grad, **kw)
+    assert ks.soft_mask_backward.launches == n + 2
+    assert torch.equal(out, again)
+    _grad_close(out, ks.soft_mask_backward_plain(img, bbox, cut, mask, grad,
+                                                 **kw))
+
+
+def test_render_backward_empty_calls_count_no_launch(cuda):
+    """With no faces the backward wrappers return empty gradients and
+    count no launch."""
+    counters = (krb.rasterize_backward, ks.soft_mask_backward)
+    before = [c.launches for c in counters]
+    img = torch.zeros(2, 0, 6, device=cuda)
+    gi, gf = krb.rasterize_backward(
+        torch.ones(2, 8, 8, 4, device=cuda),
+        torch.full((2, 8, 8), -1, dtype=torch.int32, device=cuda),
+        torch.zeros(2, 8, 8, 3, device=cuda), img,
+        torch.zeros(2, 0, 12, device=cuda), eps=1e-8)
+    assert gi.shape == (2, 0, 6) and gf.shape == (2, 0, 12)
+    g = ks.soft_mask_backward(
+        img, torch.zeros(2, 0, 4, device=cuda),
+        torch.full((2, 8, 8), 0, dtype=torch.int32, device=cuda),
+        torch.zeros(2, 8, 8, device=cuda), torch.ones(2, 8, 8, device=cuda),
+        height=8, width=8, sigmainv=7000., multiplier=1000.)
+    assert g.shape == (2, 0, 6)
+    assert [c.launches for c in counters] == before
+
+
 def test_train_step_on_card_matches_cpu(cuda):
     """The gradient of L1 + mask_iou to the vertices, on the card and
     with the plain versions on the CPU."""
