@@ -88,20 +88,26 @@ Output: the card line from ``nvidia-smi``, one line per check, a JSON line
 failed check raises and the script exits non-zero without the last line.
 It exits non-zero at once when no CUDA card is visible.
 
-The two render backwards are also held against their plain versions on a
+The four render kernels are also held against their plain versions on a
 large-faces scene (an icosphere of subdivision 1, 80 faces at batch 4,
-brought near enough to cover about 0.9 of the image), and the counts that
-size their designs are logged for each size (``backward counts`` lines).
+brought near enough to cover about 0.9 of the image), the forward ones
+over their own per-tile face lists and over the soft mask's (the shared
+binning of ``dibr_rasterization``), two launches against each other; the
+counts that size their designs are logged for each size (``forward
+counts`` and ``backward counts`` lines). The brute-force ``nearest_idx``
+is also timed at the mesh fit's F-score shape (10,000 x 10,000 points).
 
 ``python3 chip_smoke.py --compare LABEL`` instead prints ``nvcc -Xptxas
--v`` for the two render backwards' sources and times only both render
-backwards (bench, config 2 and the large-faces scene; rasterize at D = 4
-and 40), the bench and config 2 train steps (with their device time),
+-v`` for the render kernels' sources and times only the forward render
+kernels and the forward render at D = 4 and 40, both render backwards
+(bench, config 2 and the large-faces scene; rasterize at D = 4 and 40),
+the bench and config 2 train steps (with their device time),
 ``grid_sample``, ``F.grid_sample``, ``p2m_select`` on its three scenes,
 ``nearest_idx_pruned`` on config 3, the sphere-centre scene and two
-clouds of NN_BIG points, ``deftet_topk`` on config 4 at knum 30 and 300
-and on the full-cover scene, and the textured, config 3 and config 4
-steps (see ``compare``), through phase
+clouds of NN_BIG points, ``nearest_idx`` at the F-score's shape,
+``deftet_topk`` on config 4 at knum 30 and 300 and on the full-cover
+scene, and the textured, config 3 and config 4 steps (see ``compare``),
+through phase
 functions that call nothing older checkouts lack: copy the script into a
 parent's checkout to time it there.
 """
@@ -592,86 +598,20 @@ def bound(nbytes, ops):
             'bytes' if t_bytes >= t_ops else 'operations')
 
 
+def same_bits(a, b):
+    """Two outputs equal bit for bit (floats by their bits)."""
+    if a.is_floating_point():
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
 def kernel_phases(sc):
     """Each kernel against its plain version on the card, at this size's
     shapes, then both timed. Returns ({kernel: max abs error},
     {kernel: times})."""
-    errs = {}
-
-    def record(name, err):
-        errs[name] = max(errs.get(name, 0.), err)
-
-    kw = dict(height=H, width=W, multiplier=1000., eps=1e-8)
-
-    # interp, D = 4, with normal-z culling
+    errs, idx_main = forward_checks(sc)
     args = (sc.fz, sc.img, sc.bbox, sc.feat4)
-    feat_k, idx_k, w_k = kr.rasterize_interp(*args, **kw)
-    feat_p, idx_p, w_p = kr.rasterize_interp_plain(*args, **kw)
-    torch.cuda.synchronize()
-    mism = int((idx_k != idx_p).sum())
-    ew, ef = max_err(w_k, w_p), max_err(feat_k, feat_p)
-    log(f'[{sc.name}] rasterize_interp D=4: face_idx mismatches {mism}, '
-        f'covered {float((idx_k >= 0).float().mean()):.4f}, '
-        f'max err weights {ew:.3e} features {ef:.3e}')
-    expect(mism == 0 and ew <= TOL_WEIGHTS and ef <= TOL_FEATURES,
-           'rasterize_interp disagrees with its plain version')
-    record('rasterize_interp', max(ew, ef))
-    idx_main = idx_k
-
-    # select, D = 40
-    z_k, sidx_k = kr.rasterize_select(sc.fz, sc.img, sc.bbox, **kw)
-    z_p, sidx_p = kr.rasterize_select_plain(sc.fz, sc.img, sc.bbox, **kw)
-    torch.cuda.synchronize()
-    mism = int((sidx_k != sidx_p).sum())
-    cov = sidx_k >= 0
-    ez = max_err(z_k, z_p, cov)
-    expect(bool(torch.isneginf(z_k[~cov]).all()), 'select: uncovered zbuf')
-    log(f'[{sc.name}] rasterize_select: face_idx mismatches {mism} '
-        f'(vs interp {int((sidx_k != idx_k).sum())}), max err zbuf {ez:.3e}')
-    expect(mism == 0 and ez <= TOL_WEIGHTS and bool((sidx_k == idx_k).all()),
-           'rasterize_select disagrees with its plain version')
-    record('rasterize_select', ez)
-
-    # soft mask: the default knum, one that never binds, one that binds
-    hits = pixel_hits(sc.sm_bbox, H, W)[idx_main < 0]
-    log(f'[{sc.name}] soft mask: most enlarged-bbox hits on an uncovered '
-        f'pixel {int(hits.max())}')
-    for knum in (KNUM, sc.num_faces, 2):
-        skw = dict(height=H, width=W, knum=knum, sigmainv=7000.,
-                   multiplier=1000.)
-        m_k, c_k = ks.soft_mask_forward(sc.sm_img, sc.sm_bbox, idx_main,
-                                        return_cut=True, **skw)
-        m_p, c_p = ks.soft_mask_forward_plain(sc.sm_img, sc.sm_bbox,
-                                              idx_main, return_cut=True,
-                                              **skw)
-        torch.cuda.synchronize()
-        em = max_err(m_k, m_p)
-        cut_mism = int((c_k != c_p).sum())
-        binds = int((hits > knum).sum())
-        log(f'[{sc.name}] soft_mask_forward knum={knum}: pixels where knum '
-            f'binds {binds}, max err {em:.3e}, cut mismatches {cut_mism}')
-        expect(em <= TOL_MASK and cut_mism == 0, 'soft_mask_forward '
-               f'disagrees with its plain version at knum={knum}')
-        record('soft_mask_forward', em)
-
-    # slab with culling: rows 128..319 of the 512-row image
-    r0, hs = H // 4, 3 * H // 8
-    f_k, i_k, w_k = kr.rasterize_interp(
-        *args, row_start=r0, height=hs, width=W, total_height=H,
-        multiplier=1000., eps=1e-8)
-    f_p, i_p, w_p = kr.rasterize_interp_plain(
-        *args, row_start=r0, height=hs, width=W, total_height=H,
-        multiplier=1000., eps=1e-8)
-    torch.cuda.synchronize()
-    mism = int((i_k != i_p).sum())
-    slab_vs_full = int((i_k != idx_main[:, r0:r0 + hs]).sum())
-    ef = max(max_err(f_k, f_p), max_err(w_k, w_p))
-    log(f'[{sc.name}] rasterize_interp slab rows {r0}..{r0 + hs - 1}: '
-        f'face_idx mismatches {mism}, vs full image {slab_vs_full}, '
-        f'max err {ef:.3e}')
-    expect(mism == 0 and slab_vs_full == 0 and ef <= TOL_FEATURES,
-           'rasterize_interp slab disagrees')
-    record('rasterize_interp', ef)
+    kw = dict(height=H, width=W, multiplier=1000., eps=1e-8)
 
     times = {}
     sel = (sc.fz, sc.img, sc.bbox)
@@ -694,10 +634,120 @@ def kernel_phases(sc):
                                                 idx_main, **skw),
              soft_bound(sc, idx_main, KNUM))):
         times[name] = dict(ms=time_ms(fn, TIME_ITERS),
+                           device_ms=device_ms(f'[{sc.name}] {name}', fn),
                            plain_ms=time_ms(plain, plain_iters),
                            bound_ms=bnd[0], bound_by=bnd[1])
         log(f'[{sc.name}] time {name}: ' + json.dumps(times[name]))
     return errs, times
+
+
+def forward_checks(sc):
+    """The forward kernels against their plain versions on the card at
+    this size's shapes, over their own per-tile lists and over those of the
+    soft mask's enlarged bboxes (``dibr_rasterization``'s shared binning),
+    two launches against each other. Returns ({kernel: max abs error}, the
+    interp mode's face_idx)."""
+    errs = {}
+
+    def record(name, err):
+        errs[name] = max(errs.get(name, 0.), err)
+
+    kw = dict(height=H, width=W, multiplier=1000., eps=1e-8)
+    shared = kr.tile_bins(sc.sm_bbox, height=H, width=W, multiplier=1000.)
+    expect(torch.equal(shared, kr.tile_bins_plain(sc.sm_bbox, height=H,
+                                                  width=W,
+                                                  multiplier=1000.)),
+           f'[{sc.name}] tile_bins disagrees with its plain version')
+
+    # interp, D = 4, with normal-z culling
+    args = (sc.fz, sc.img, sc.bbox, sc.feat4)
+    feat_p, idx_p, w_p = kr.rasterize_interp_plain(*args, **kw)
+    z_p, sidx_p = kr.rasterize_select_plain(sc.fz, sc.img, sc.bbox, **kw)
+    for lists, bkw in (('own', {}), ('shared', {'bins': shared})):
+        feat_k, idx_k, w_k = kr.rasterize_interp(*args, **kw, **bkw)
+        again = kr.rasterize_interp(*args, **kw, **bkw)
+        torch.cuda.synchronize()
+        mism = int((idx_k != idx_p).sum())
+        ew, ef = max_err(w_k, w_p), max_err(feat_k, feat_p)
+        same = all(same_bits(a, b) for a, b in zip((feat_k, idx_k, w_k),
+                                                   again))
+        log(f'[{sc.name}] rasterize_interp D=4 ({lists} lists): face_idx '
+            f'mismatches {mism}, covered '
+            f'{float((idx_k >= 0).float().mean()):.4f}, max err weights '
+            f'{ew:.3e} features {ef:.3e}, two launches bit-identical {same}')
+        expect(mism == 0 and ew <= TOL_WEIGHTS and ef <= TOL_FEATURES
+               and same, 'rasterize_interp disagrees with its plain version')
+        record('rasterize_interp', max(ew, ef))
+
+        # select, D = 40
+        z_k, sidx_k = kr.rasterize_select(sc.fz, sc.img, sc.bbox, **kw,
+                                          **bkw)
+        again = kr.rasterize_select(sc.fz, sc.img, sc.bbox, **kw, **bkw)
+        torch.cuda.synchronize()
+        mism = int((sidx_k != sidx_p).sum())
+        cov = sidx_k >= 0
+        ez = max_err(z_k, z_p, cov)
+        same = same_bits(z_k, again[0]) and same_bits(sidx_k, again[1])
+        expect(bool(torch.isneginf(z_k[~cov]).all()),
+               'select: uncovered zbuf')
+        log(f'[{sc.name}] rasterize_select ({lists} lists): face_idx '
+            f'mismatches {mism} (vs interp {int((sidx_k != idx_k).sum())}), '
+            f'max err zbuf {ez:.3e}, two launches bit-identical {same}')
+        expect(mism == 0 and ez <= TOL_WEIGHTS and same
+               and bool((sidx_k == idx_k).all()),
+               'rasterize_select disagrees with its plain version')
+        record('rasterize_select', ez)
+    idx_main = idx_p
+
+    # soft mask: the default knum, one that never binds, one that binds
+    hits = pixel_hits(sc.sm_bbox, H, W)[idx_main < 0]
+    log(f'[{sc.name}] soft mask: most enlarged-bbox hits on an uncovered '
+        f'pixel {int(hits.max())}')
+    for knum in (KNUM, sc.num_faces, 2):
+        skw = dict(height=H, width=W, knum=knum, sigmainv=7000.,
+                   multiplier=1000.)
+        m_p, c_p = ks.soft_mask_forward_plain(sc.sm_img, sc.sm_bbox,
+                                              idx_main, return_cut=True,
+                                              **skw)
+        for lists, bkw in (('own', {}), ('shared', {'bins': shared})):
+            m_k, c_k = ks.soft_mask_forward(sc.sm_img, sc.sm_bbox, idx_main,
+                                            return_cut=True, **skw, **bkw)
+            m_a, c_a = ks.soft_mask_forward(sc.sm_img, sc.sm_bbox, idx_main,
+                                            return_cut=True, **skw, **bkw)
+            torch.cuda.synchronize()
+            em = max_err(m_k, m_p)
+            cut_mism = int((c_k != c_p).sum())
+            binds = int((hits > knum).sum())
+            same = same_bits(m_k, m_a) and same_bits(c_k, c_a)
+            log(f'[{sc.name}] soft_mask_forward knum={knum} ({lists} '
+                f'lists): pixels where knum binds {binds}, max err '
+                f'{em:.3e}, cut mismatches {cut_mism}, two launches '
+                f'bit-identical {same}')
+            expect(em <= TOL_MASK and cut_mism == 0 and same,
+                   'soft_mask_forward disagrees with its plain version at '
+                   f'knum={knum}')
+            record('soft_mask_forward', em)
+
+    # slab with culling: rows 128..319 of the 512-row image
+    r0, hs = H // 4, 3 * H // 8
+    f_k, i_k, w_k = kr.rasterize_interp(
+        *args, row_start=r0, height=hs, width=W, total_height=H,
+        multiplier=1000., eps=1e-8)
+    f_p, i_p, w_p = kr.rasterize_interp_plain(
+        *args, row_start=r0, height=hs, width=W, total_height=H,
+        multiplier=1000., eps=1e-8)
+    torch.cuda.synchronize()
+    mism = int((i_k != i_p).sum())
+    slab_vs_full = int((i_k != idx_main[:, r0:r0 + hs]).sum())
+    ef = max(max_err(f_k, f_p), max_err(w_k, w_p))
+    log(f'[{sc.name}] rasterize_interp slab rows {r0}..{r0 + hs - 1}: '
+        f'face_idx mismatches {mism}, vs full image {slab_vs_full}, '
+        f'max err {ef:.3e}')
+    expect(mism == 0 and slab_vs_full == 0 and ef <= TOL_FEATURES,
+           'rasterize_interp slab disagrees')
+    record('rasterize_interp', ef)
+
+    return errs, idx_main
 
 
 def grad_close(label, out, ref):
@@ -872,7 +922,68 @@ def backward_counts(sc):
     return counts
 
 
-def resource_usage(names=('rasterize_bwd', 'soft_mask')):
+def tile_pass(bbox, height, width, tile=16, chunk=None):
+    """Per (face, 16x16 pixel tile), whether the face's bbox overlaps the
+    tile's pixel-centre rectangle by the forward kernels' float test
+    (``bb[0] <= x_hi && bb[2] > x_lo && bb[1] <= y_hi && bb[3] > y_lo``).
+    Returns the faces per tile (B, tile rows, tile columns) int64, or with
+    ``chunk`` the nonempty (tile, ``chunk``-face range) sublists too."""
+    B, F_ = bbox.shape[:2]
+    x0, y0 = _pixel_coords(height, width, 1000., bbox.dtype,
+                           device=bbox.device)
+    c0 = torch.arange(0, width, tile, device=bbox.device)
+    r0 = torch.arange(0, height, tile, device=bbox.device)
+    c1, r1 = (c0 + tile).clamp(max=width) - 1, (r0 + tile).clamp(
+        max=height) - 1
+    xp = ((bbox[..., 0, None] <= x0[c1]) & (bbox[..., 2, None] > x0[c0]))
+    yp = ((bbox[..., 1, None] <= y0[r0]) & (bbox[..., 3, None] > y0[r1]))
+    counts = torch.zeros((B, len(r0), len(c0)), dtype=torch.int64,
+                         device=bbox.device)
+    sublists = 0
+    step = chunk or F_
+    for s in range(0, F_, step):
+        # 0/1 products summed in float32: exact below 2^24
+        part = torch.bmm(yp[:, s:s + step].transpose(1, 2).float(),
+                         xp[:, s:s + step].float()).long()
+        counts += part
+        sublists += int((part > 0).sum())
+    return (counts, sublists) if chunk else counts
+
+
+def forward_counts(sc, knum=KNUM):
+    """The counts that size the forward kernels' per-tile face lists, for
+    the rasterizer's bboxes (culled faces empty) and the soft mask's
+    enlarged ones (every face): the (tile, face) overlap pairs against the
+    sweep's tile x face tests, the tiles with none, the faces per tile
+    (mean, 99th percentile, max) and the nonempty (tile, 1,024-face range)
+    sublists; and the tiles the soft mask walks (an uncovered pixel)."""
+    B, F_ = sc.batch, sc.num_faces
+    _, idx, _ = kr.rasterize_interp(sc.fz, sc.img, sc.bbox, sc.feat4,
+                                    height=H, width=W, multiplier=1000.,
+                                    eps=1e-8)
+    counts = {'faces': B * F_, 'tiles': B * ((H + 15) // 16)
+              * ((W + 15) // 16)}
+    counts['sweep tests'] = counts['tiles'] * F_
+    unc = F.max_pool2d((idx < 0).float()[:, None], 16, ceil_mode=True)[:, 0]
+    counts['tiles with an uncovered pixel'] = int(unc.sum())
+    for name, bb in (('rasterize', sc.bbox), ('soft mask', sc.sm_bbox)):
+        per_tile, sub = tile_pass(bb, H, W, chunk=1024)
+        n = per_tile.flatten().float()
+        counts[f'{name} pairs'] = int(n.sum())
+        counts[f'{name} tiles with none'] = int((n == 0).sum())
+        counts[f'{name} faces per tile, mean'] = float(n.mean())
+        counts[f'{name} faces per tile, p99'] = float(
+            torch.quantile(n, 0.99))
+        counts[f'{name} faces per tile, max'] = int(n.max())
+        counts[f'{name} nonempty 1024-face sublists'] = sub
+    live = per_tile.flatten()[unc.flatten() > 0]
+    counts['soft mask pairs on tiles with an uncovered pixel'] = int(
+        live.sum())
+    log(f'[{sc.name}] forward counts: ' + json.dumps(counts))
+    return counts
+
+
+def resource_usage(names=('rasterize', 'rasterize_bwd', 'soft_mask')):
     """``nvcc -Xptxas -v`` for ``csrc/<name>.cu`` with the build's flags:
     each kernel's registers, spills and shared memory, logged."""
     flags = [f for f in _build.NVCC_FLAGS
@@ -922,6 +1033,52 @@ def backward_times(label, sc):
     key = f'soft_mask_backward, {sc.name}'
     out[key] = dict(ms=time_ms(soft, TIME_ITERS),
                     device_ms=device_ms(f'[{label}] {key}', soft))
+    return out
+
+
+def forward_times(label, sc):
+    """The forward kernels on ``sc`` (rasterize at D = 4 and in select
+    mode, the soft mask at knum KNUM on the rasterizer's coverage) and the
+    user's forward render at D = 4 and D = WIDE, each timed with CUDA
+    events and by the card alone. Returns {name: times}."""
+    out = {}
+    kw = dict(height=H, width=W, multiplier=1000., eps=1e-8)
+    _, idx, _ = kr.rasterize_interp(sc.fz, sc.img, sc.bbox, sc.feat4, **kw)
+    skw = dict(height=H, width=W, knum=KNUM, sigmainv=7000.,
+               multiplier=1000.)
+    fns = {
+        'rasterize_interp D=4': lambda: kr.rasterize_interp(
+            sc.fz, sc.img, sc.bbox, sc.feat4, **kw),
+        'rasterize_select': lambda: kr.rasterize_select(
+            sc.fz, sc.img, sc.bbox, **kw),
+        f'soft_mask_forward knum={KNUM}': lambda: ks.soft_mask_forward(
+            sc.sm_img, sc.sm_bbox, idx, **skw)}
+    for dim in (4, WIDE):
+        fns[f'forward render D={dim}'] = (lambda d: lambda: sc.forward(d))(
+            dim)
+    for key, fn in fns.items():
+        out[f'{key}, {sc.name}'] = dict(
+            ms=time_ms(fn, TIME_ITERS),
+            device_ms=device_ms(f'[{label}] {key}, {sc.name}', fn))
+    return out
+
+
+def nn_fscore_times(label):
+    """The brute-force ``nearest_idx`` at the mesh fit's F-score shape
+    (FIT3_EVAL x FIT3_EVAL points, both ways in the F-score), with CUDA
+    events and by the card alone, beside its bound."""
+    p1, p2 = kt.utils.interop.metrics_scene(SEED, FIT3_EVAL, FIT3_EVAL, 1)[:2]
+
+    def fn():
+        return kn.nearest_idx(p1, p2)
+    bnd = bound(4 * (3 * FIT3_EVAL * 2 + FIT3_EVAL),
+                FIT3_EVAL ** 2 * OPS_NN_PAIR)
+    out = dict(ms=time_ms(fn, TIME_ITERS),
+               device_ms=device_ms(f'[{label}] nearest_idx, {FIT3_EVAL} x '
+                                   f'{FIT3_EVAL}', fn),
+               bound_ms=bnd[0], bound_by=bnd[1])
+    log(f'[{label}] time nearest_idx ({FIT3_EVAL} x {FIT3_EVAL} points, the '
+        'mesh fit\'s F-score): ' + json.dumps(out))
     return out
 
 
@@ -1879,6 +2036,9 @@ def metrics_kernel_phases():
         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd[0],
         bound_by=bnd[1], shape=shape)
     log('[config3] time nearest_idx: ' + json.dumps(times['nearest_idx']))
+    # the shape the main path gives it: the mesh fit's F-score
+    times['nearest_idx'].update({f'fscore_{k}': v for k, v in
+                                 nn_fscore_times('config3 fit').items()})
     nn = {}
     for name, a, b in (('config3', p1, p2), ('config3 p2->p1', p2, p1),
                        ('sphere centre', *sphere_centre()),
@@ -2583,9 +2743,9 @@ def compare(label):
     """``--compare LABEL``: the timings that set two checkouts side by side,
     through the phase functions above, which call only what every revision
     of the port since config 4 has: ``resource_usage``, the design counts,
-    ``backward_times`` and ``train_step_times`` on the bench and config 2
-    sizes (the backwards also on the large-faces scene), ``sampler_times``
-    at config 2's step,
+    ``forward_times``, ``backward_times`` and ``train_step_times`` on the
+    bench and config 2 sizes (the kernels also on the large-faces scene),
+    ``sampler_times`` at config 2's step, ``nn_fscore_times``,
     the textured step, ``p2m_times`` on ``p2m_scenes``, ``nn_times`` on
     config 3 and the sphere-centre scene, ``nn_big_times``, the config 3
     step (``metrics_path``), ``deftet_times`` on config 4 at knum 30 and
@@ -2605,7 +2765,10 @@ def compare(label):
     for name, b, s in (*SIZES, LARGE):
         sc = Scene(name, b, s, 'cuda',
                    LARGE_SCALE if (name, b, s) == LARGE else 1.)
+        forward_counts(sc)
         backward_counts(sc)
+        for key, t in forward_times(label, sc).items():
+            report(key, t)
         for key, t in backward_times(label, sc).items():
             report(key, t)
         if (name, b, s) != LARGE:
@@ -2622,6 +2785,7 @@ def compare(label):
     report('nearest_idx_pruned, sphere centre',
            nn_times(label, *sphere_centre()))
     report(f'nearest_idx_pruned, {NN_BIG} points', nn_big_times(label)[0])
+    report(f'nearest_idx, {FIT3_EVAL} x {FIT3_EVAL}', nn_fscore_times(label))
     report('config3_step', {'ms': metrics_path()[1]})
     d4 = kt.utils.interop.deftet_scene(seed=SEED, side=D4_SIDE,
                                        num_faces=D4_FACES)
@@ -2663,7 +2827,10 @@ def main():
         for name, err in {**sc_errs, **bwd_errs}.items():
             errs[name] = max(errs[name], err)
     large = Scene(*LARGE, 'cuda', LARGE_SCALE)
+    for name, err in forward_checks(large)[0].items():
+        errs[name] = max(errs[name], err)
     for sc in (*scenes, large):
+        forward_counts(sc)
         backward_counts(sc)
     for name, err in backward_phases(large)[0].items():
         errs[name] = max(errs[name], err)
@@ -2753,7 +2920,10 @@ def main():
                          **{k: t[k] for k in ('device_ms', 'library_device_ms',
                                               'cull_skipped', 'scanned',
                                               'cube_pairs',
-                                              'launches_per_call')
+                                              'launches_per_call',
+                                              'fscore_ms',
+                                              'fscore_device_ms',
+                                              'fscore_bound_ms')
                             if k in t}))
     expect(all(row['launches'] > 0 for row in rows),
            'a kernel of the kernels line was launched on no path')

@@ -30,11 +30,17 @@
 // What bounds it on an H100: a few bytes per pixel and a few dozen per
 // face, so the work is the (pixel, face) pairs, here about a hundred float
 // operations and one exp per recorded pair (twice that in the backward).
-// The forward stages faces through shared memory 256 at a time in
-// original order, compacted to those whose enlarged bbox overlaps the
-// block's pixel-centre rectangle; the compaction keeps the order, so the
-// first-knum rule is exact, and a block stops walking once none of its
-// pixels can record more.
+// The forward walks, a block a 16x16 tile, the tile's own list of faces
+// (tile_lists.cuh: the faces whose enlarged bbox overlaps the tile's
+// pixel-centre rectangle, a bit a face in slots of CHUNK ids) in id order,
+// so the first-knum rule is exact, staged 256 faces at a time with the
+// tile's pixels in each one's bbox (tile_mask); a tile with no uncovered
+// pixel stages nothing, and a block stops once none of its pixels can
+// record more. A warp takes 32 staged faces at a time: 17 ballots turn the
+// faces' pixel bits into each pixel's 32-face mask, cut to the first
+// knum - recorded; the recorded pairs join a queue, computed 32 at a time,
+// one a lane, and each pixel multiplies its factors in in id order. So the
+// ~300 instructions of a pair (9 IEEE divisions, an exp) run in full warps.
 //   The backward's pairs lie on the few uncovered pixels near the
 // silhouette (at config 2, 93,032 of 2,097,152 pixels), but every face's
 // enlarged bbox spans about 400 pixels. So it walks bits, not pixels:
@@ -76,11 +82,11 @@
 
 #include <algorithm>
 
+#include "tile_lists.cuh"
+
 namespace {
 
-constexpr int TILE = 16;
 constexpr int THREADS = TILE * TILE;
-constexpr int WARPS = THREADS / 32;
 constexpr int BWD_WARPS = 8;                // faces per backward block
 constexpr int PAIRS = 64;                   // listed pairs a warp holds
 constexpr int BWD_BLOCKS = 3;               // blocks an SM holds: <= 85 regs
@@ -103,14 +109,6 @@ struct Params {
   int B, F, H, W, row_start, total_height, knum;  // knum: forward only
   float sx, sy, sigmainv, multiplier, bad;
 };
-
-__device__ __forceinline__ float pixel_x(float sx, int col, int W) {
-  return sx * (float)(2 * col + 1 - W);
-}
-
-__device__ __forceinline__ float pixel_y(float sy, int row, int total_h) {
-  return sy * (float)(total_h - 2 * row - 1);
-}
 
 // Least squared distance from (px, py) to a face, as dibr.py _min6, and
 // which of the 6 it is (0-2 the edges, 3-5 the vertices; first on ties).
@@ -143,56 +141,22 @@ __device__ __forceinline__ float min6(float px, float py, const float* v,
   return dmin;
 }
 
+// Faces staged for the block, in id order: the pixels of the tile in each
+// one's enlarged bbox (tile_mask), its verts and id; the tile's pixel
+// centres.
 struct Staged {
-  float bbox[THREADS][4];
+  unsigned mask[THREADS];
   float img[THREADS][6];
   int id[THREADS];
-  int warp_count[WARPS];
+  float x[TILE], y[TILE];
 };
 
-// Stages faces base .. base + THREADS - 1 of batch entry b into shared
-// memory, compacted in original order to those whose enlarged bbox overlaps
-// the block's pixel-centre rectangle [x_lo, x_hi] x [y_lo, y_hi]; returns
-// how many it kept. Every thread of the block calls it.
-__device__ int stage_faces(const Params& p, int b, int base, float x_lo,
-                           float x_hi, float y_lo, float y_hi, Staged& s) {
-  const int tid = threadIdx.y * TILE + threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int f = base + tid;
-  const size_t face = (size_t)b * p.F + f;
-  float bb[4] = {INFINITY, INFINITY, -INFINITY, -INFINITY};
-  if (f < p.F) {
-    const float* src = p.bbox + face * 4;
-    bb[0] = src[0]; bb[1] = src[1]; bb[2] = src[2]; bb[3] = src[3];
-  }
-  const bool keep = bb[0] <= x_hi && bb[2] > x_lo &&
-                    bb[1] <= y_hi && bb[3] > y_lo;
-  const unsigned ballot = __ballot_sync(FULL, keep);
-  if (lane == 0) s.warp_count[warp] = __popc(ballot);
-  __syncthreads();
-  int offset = 0, count = 0;
-  for (int i = 0; i < WARPS; ++i) {
-    const int c = s.warp_count[i];
-    offset += i < warp ? c : 0;
-    count += c;
-  }
-  if (keep) {
-    const int k = offset + __popc(ballot & ((1u << lane) - 1u));
-    const float* im = p.img + face * 6;
-    for (int j = 0; j < 4; ++j) s.bbox[k][j] = bb[j];
-    for (int j = 0; j < 6; ++j) s.img[k][j] = im[j];
-    s.id[k] = f;
-  }
-  __syncthreads();
-  return count;
-}
-
-// The pixel of this thread and the pixel-centre rectangle of its block.
+// The pixel of this thread.
 struct Pixel {
   int b, col, hy;
   bool active;
   size_t pix;
-  float px, py, x_lo, x_hi, y_lo, y_hi;
+  float px, py;
 };
 
 __device__ Pixel block_pixel(const Params& p) {
@@ -204,17 +168,75 @@ __device__ Pixel block_pixel(const Params& p) {
   q.pix = ((size_t)q.b * p.H + q.hy) * p.W + q.col;
   q.px = pixel_x(p.sx, q.col, p.W);
   q.py = pixel_y(p.sy, p.row_start + q.hy, p.total_height);
-  const int c0 = blockIdx.x * TILE, c1 = min(c0 + TILE, p.W) - 1;
-  const int r0 = blockIdx.y * TILE, r1 = min(r0 + TILE, p.H) - 1;
-  q.x_lo = pixel_x(p.sx, c0, p.W);
-  q.x_hi = pixel_x(p.sx, c1, p.W);
-  q.y_hi = pixel_y(p.sy, p.row_start + r0, p.total_height);
-  q.y_lo = pixel_y(p.sy, p.row_start + r1, p.total_height);
   return q;
 }
 
 __device__ __forceinline__ bool in_bbox(float px, float py, const float* bb) {
   return px >= bb[0] && px < bb[2] && py >= bb[1] && py < bb[3];
+}
+
+// Position of the n-th (from 0) set bit of m.
+__device__ __forceinline__ int nth_bit(unsigned m, int n) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    const int c = __popc(m & ((1u << w) - 1u));
+    if (n >= c) {
+      n -= c;
+      m >>= w;
+      pos += w;
+    }
+  }
+  return pos;
+}
+
+// A warp's queue of (pixel, face) pairs waiting for a full round: lane j
+// holds entry j < n (the lane of its pixel, the stage index of its face).
+struct Pending {
+  int owner, k, n;
+};
+
+// Appends the warp's pairs of one batch of faces (k0 + the set bits of each
+// lane's mask; by lane, then face) to the queue, and runs every full round
+// of 32, entry j on lane j (round(owner, k, 32)); the rest wait in pend,
+// for a later batch or round(pend.owner, pend.k, pend.n). A pixel's pairs
+// keep their order. Every lane of the warp calls it.
+template <typename Round>
+__device__ __forceinline__ void queue_pairs(unsigned mask, int k0, int lane,
+                                            Pending& pend, Round round) {
+  const int cnt = __popc(mask);
+  int incl = cnt;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += t;
+  }
+  const int all = pend.n + __shfl_sync(FULL, incl, 31);
+  // entry c: the pending ones, then the batch's
+  auto entry = [&](int c, int* owner, int* k) {
+    const int po = __shfl_sync(FULL, pend.owner, c & 31);
+    const int pk = __shfl_sync(FULL, pend.k, c & 31);
+    const int t = c - pend.n;
+    int at = 0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const int v = __shfl_sync(FULL, incl, at + o - 1);
+      if (v <= t) at += o;
+    }
+    const unsigned m = __shfl_sync(FULL, mask, at);
+    const int before = __shfl_sync(FULL, incl - cnt, at);
+    *owner = c < pend.n ? po : at;
+    *k = c < pend.n ? pk : k0 + nth_bit(m, t - before);
+  };
+  int c0 = 0;
+  for (; c0 + 32 <= all; c0 += 32) {
+    int owner, k;
+    entry(c0 + lane, &owner, &k);
+    round(owner, k, 32);
+  }
+  int owner = 0, k = 0;
+  if (c0 < all) entry(c0 + lane, &owner, &k);
+  pend = Pending{owner, k, all - c0};
 }
 
 // Sum over the warp's lanes, in a fixed order; lane 0 holds it.
@@ -224,30 +246,114 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// One round of pairs, one a lane (the first n valid): each lane computes
+// its pair's factor 1 - p, then each pixel multiplies in its own factors in
+// the round's order.
+__device__ __forceinline__ void pair_round(const Params& p, const Staged& s,
+                                           const Pixel& q, int owner, int k,
+                                           int n, int lane, float& prod) {
+  const float px = __shfl_sync(FULL, q.px, owner);
+  const float py = __shfl_sync(FULL, q.py, owner);
+  float factor = 1.f;
+  if (lane < n) {
+    int which;
+    const float d2 = min6(px, py, s.img[k], p.bad, &which);
+    const float z = p.sigmainv * d2 / p.multiplier / p.multiplier;
+    factor = 1.f - expf(-z);
+  }
+  for (int u = 0; u < n; ++u) {
+    const int o = __shfl_sync(FULL, owner, u);
+    const float v = __shfl_sync(FULL, factor, u);
+    if (lane == o) prod = prod * v;
+  }
+}
+
+// Records one batch of up to 32 staged faces (k0 ..) for the warp's pixels:
+// each lane marks the faces its pixel records (inside the enlarged bbox,
+// knum in all), and the pairs join the warp's queue (queue_pairs), whose
+// full rounds are computed a pair a lane (pair_round). A pixel's pairs keep
+// their id order, so its product is the sequential one. Every lane of the
+// warp calls it.
+__device__ __forceinline__ void record_batch(const Params& p, const Pixel& q,
+                                             const Staged& s, int k0,
+                                             int count, bool open, int lane,
+                                             int& recorded, int& cut,
+                                             float& prod, Pending& pend) {
+  // the batch's faces over this pixel: lane k holds face k0 + k's
+  // tile_mask, and a ballot a column and one for this pixel's row turn the
+  // faces' pixels into the pixels' faces
+  const unsigned fm = k0 + lane < count ? s.mask[k0 + lane] : 0u;
+  unsigned cols = 0u;
+#pragma unroll
+  for (int c = 0; c < TILE; ++c) {
+    const unsigned v = __ballot_sync(FULL, (fm >> c) & 1u);
+    if (c == (int)threadIdx.x) cols = v;
+  }
+  const int r0 = threadIdx.y & ~1;          // the warp's two rows
+  const unsigned row0 = __ballot_sync(FULL, (fm >> (TILE + r0)) & 1u);
+  const unsigned row1 = __ballot_sync(FULL, (fm >> (TILE + r0 + 1)) & 1u);
+  unsigned mask = 0u;
+  if (open) {
+    mask = cols & (threadIdx.y & 1 ? row1 : row0);
+    const int room = p.knum - recorded;
+    if (__popc(mask) > room) mask &= (2u << nth_bit(mask, room - 1)) - 1u;
+  }
+  const int cnt = __popc(mask);
+  if (cnt > 0) {
+    recorded += cnt;
+    if (recorded == p.knum) cut = s.id[k0 + 31 - __clz(mask)];
+  }
+  queue_pairs(mask, k0, lane, pend, [&](int owner, int k, int n) {
+    pair_round(p, s, q, owner, k, n, lane, prod);
+  });
+}
+
+// Walks the tile's own list in id order (walk_tile), THREADS faces staged
+// at a time and recorded 32 at a time (record_batch); stops once none of
+// the block's pixels can record more, and walks nothing where none can
+// record any.
 __global__ void __launch_bounds__(THREADS)
-soft_mask_kernel(Params p) {
+soft_mask_kernel(Params p, const uint32_t* words, int chunks) {
   __shared__ Staged s;
+  __shared__ WalkLists lists;
   const Pixel q = block_pixel(p);
+  const int tid = threadIdx.y * TILE + threadIdx.x;
+  const int lane = tid & 31;
   const bool uncovered = q.active && p.face_idx[q.pix] < 0;
   int recorded = 0, cut = p.F;
   float prod = 1.f;
+  if (tid < TILE) s.x[tid] = pixel_x(p.sx, blockIdx.x * TILE + tid, p.W);
+  else if (tid < 2 * TILE)
+    s.y[tid - TILE] = pixel_y(p.sy, p.row_start + blockIdx.y * TILE + tid -
+                                        TILE, p.total_height);
 
-  for (int base = 0; base < p.F; base += THREADS) {
-    // also the barrier before the stage is overwritten
-    if (!__syncthreads_or(uncovered && recorded < p.knum)) break;
-    const int count = stage_faces(p, q.b, base, q.x_lo, q.x_hi, q.y_lo,
-                                  q.y_hi, s);
-    if (uncovered) {
-      for (int k = 0; k < count && recorded < p.knum; ++k) {
-        if (!in_bbox(q.px, q.py, s.bbox[k])) continue;
-        int which;
-        const float d2 = min6(q.px, q.py, s.img[k], p.bad, &which);
-        const float z = p.sigmainv * d2 / p.multiplier / p.multiplier;
-        const float prob = expf(-z);
-        prod = prod * (1.f - prob);
-        if (++recorded == p.knum) cut = s.id[k];
+  if (__syncthreads_or(uncovered && p.knum > 0)) {
+    walk_tile(words, chunks, lists, [&](int n) {
+      for (int s0 = 0; s0 < n; s0 += THREADS) {
+        // also the barrier before the stage is overwritten
+        if (!__syncthreads_or(uncovered && recorded < p.knum)) return false;
+        const int count = min(THREADS, n - s0);
+        if (tid < count) {
+          const int f = lists.order[s0 + tid];
+          const size_t face = (size_t)q.b * p.F + f;
+          s.mask[tid] = tile_mask(p.bbox + face * 4, s.x, s.y);
+          for (int j = 0; j < 6; ++j) s.img[tid][j] = p.img[face * 6 + j];
+          s.id[tid] = f;
+        }
+        __syncthreads();
+        Pending pend{0, 0, 0};
+        for (int k0 = 0; k0 < count; k0 += 32) {
+          const bool open = uncovered && recorded < p.knum;
+          if (!__any_sync(FULL, open)) break;
+          record_batch(p, q, s, k0, count, open, lane, recorded, cut, prod,
+                       pend);
+        }
+        // the stage is overwritten next: the last pairs now
+        pair_round(p, s, q, pend.owner, pend.k, pend.n, lane, prod);
       }
-    }
+      __syncthreads();
+      return true;
+    });
   }
 
   if (q.active) {
@@ -285,21 +391,6 @@ soft_mask_live_kernel(const int32_t* cut, const float* grad, uint32_t* live,
   }
   const unsigned m = __ballot_sync(FULL, bit);
   if (lane == 0) live[word] = m;
-}
-
-// Position of the n-th (from 0) set bit of m.
-__device__ __forceinline__ int nth_bit(unsigned m, int n) {
-  int pos = 0;
-#pragma unroll
-  for (int w = 16; w > 0; w >>= 1) {
-    const int c = __popc(m & ((1u << w) - 1u));
-    if (n >= c) {
-      n -= c;
-      m >>= w;
-      pos += w;
-    }
-  }
-  return pos;
 }
 
 // A face of the backward: its enlarged bbox and verts, and the rows and
@@ -600,21 +691,29 @@ dim3 pixel_grid(int B, int H, int W) {
 
 extern "C" {
 
-// mask (B, H, W); cut (B, H, W) int32, written when not null.
+// mask (B, H, W); cut (B, H, W) int32, written when not null; lists, the
+// per-tile lists (tile_lists.cuh) of bboxes that hold these, made here
+// from bbox first when bin_first is 1.
 int soft_mask_forward(const float* img, const float* bbox,
-                      const int32_t* face_idx, float* mask, int32_t* cut,
-                      int B, int F, int H, int W, int row_start,
-                      int total_height, int knum, float sx, float sy,
-                      float sigmainv, float multiplier, float bad,
-                      int device, void* stream) {
+                      const int32_t* face_idx, uint32_t* lists,
+                      int bin_first, float* mask, int32_t* cut, int B, int F,
+                      int H, int W, int row_start, int total_height, int knum,
+                      float sx, float sy, float sigmainv, float multiplier,
+                      float bad, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || H == 0 || W == 0) return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  const Grid g = make_grid(B, F, H, W, row_start, total_height, sx, sy);
+  if (bin_first) {
+    err = bin(bbox, g, lists, s);
+    if (err != cudaSuccess) return (int)err;
+  }
   Params p{img, bbox, face_idx, nullptr, nullptr, cut, mask,
            B, F, H, W, row_start, total_height, knum,
            sx, sy, sigmainv, multiplier, bad};
-  soft_mask_kernel<<<pixel_grid(B, H, W), dim3(TILE, TILE), 0,
-                     (cudaStream_t)stream>>>(p);
+  soft_mask_kernel<<<pixel_grid(B, H, W), dim3(TILE, TILE), 0, s>>>(
+      p, lists, g.chunks);
   return (int)cudaGetLastError();
 }
 

@@ -2,7 +2,8 @@
 ``ctypes``.
 
 Each source is compiled on its own into a shared library with a plain C
-interface, named by a hash of the source and the flags, under
+interface, named by a hash of the source, the headers beside it
+(``csrc/*.cuh``) and the flags, under
 ``kaolin_tpu_torch/_build/`` (listed in ``.gitignore``). A library that is
 already there is loaded as it is. ``build_all`` starts one ``nvcc`` per
 source, all at once.
@@ -57,7 +58,8 @@ def _nvcc():
 
 def _target(name):
     src = _CSRC / f'{name}.cu'
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b''.join(h.read_bytes() for h in sorted(_CSRC.glob('*.cuh')))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + ' '.join(NVCC_FLAGS).encode()).hexdigest()
     return src, _BUILD_DIR / f'{name}-{digest[:16]}.so'
 

@@ -10,6 +10,13 @@ it runs the plain version, which mirrors the JAX package's XLA path
 (``_select_faces_xla`` and the gather epilogue of
 ``kaolin_tpu/render/mesh/rasterization.py``) and takes float32 or float64.
 
+On the card both modes walk per-tile face lists: for every 16x16 tile of
+pixels, the faces whose bbox overlaps the tile's pixel-centre rectangle, a
+bit a face, from a binning pass (:func:`tile_bins`, another entry point of
+``csrc/rasterize.cu``). ``dibr_rasterization`` bins the soft mask's
+enlarged bboxes once and passes the lists to both kernels (``bins``);
+lists of bboxes that hold the kernel's own give the same result.
+
 Inputs, as the TPU kernels take them: ``face_vertices_z`` (B, F, 3),
 ``face_vertices_image_flat`` (B, F, 6) scaled by ``multiplier``,
 ``face_bboxes`` (B, F, 4) scaled (xmin, ymin, xmax, ymax), culled faces
@@ -26,13 +33,19 @@ import torch
 from . import _build
 
 __all__ = ['rasterize_interp', 'rasterize_select', 'rasterize_interp_plain',
-           'rasterize_select_plain']
+           'rasterize_select_plain', 'tile_bins', 'tile_bins_plain']
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    'rasterize_interp': [_P] * 7 + [_I] * 7 + [_F] * 3 + [_I, _P],
-    'rasterize_select': [_P] * 5 + [_I] * 6 + [_F] * 3 + [_I, _P],
+    'rasterize_interp': ([_P] * 5 + [_I] + [_P] * 3 + [_I] * 7 + [_F] * 3
+                         + [_I, _P]),
+    'rasterize_select': ([_P] * 4 + [_I] + [_P] * 2 + [_I] * 6 + [_F] * 3
+                         + [_I, _P]),
+    'tile_bins': [_P] * 2 + [_I] * 6 + [_F] * 2 + [_I, _P],
 }
+# the lists' layout (csrc/tile_lists.cuh): pixels a side of a tile, face
+# ids a slot (a tile's faces are cut into slots of CHUNK consecutive ids)
+TILE, CHUNK = 16, 1024
 # elements per (chunk, B, H, W) intermediate of the plain version
 _PLAIN_BUDGET = 1 << 25
 
@@ -157,6 +170,77 @@ def rasterize_interp_plain(face_vertices_z, face_vertices_image_flat,
     return features, face_idx, weights
 
 
+def _slots(B, F, height, width):
+    """The lists' slots: B * tile rows * tile columns * ceil(F / CHUNK)."""
+    return B * -(-height // TILE) * -(-width // TILE) * -(-F // CHUNK)
+
+
+def tile_bins_plain(face_bboxes, row_start=0, *, height, width,
+                    total_height=None, multiplier):
+    """Plain version of :func:`tile_bins`."""
+    bb = face_bboxes
+    B, F = bb.shape[:2]
+    ty, tx = -(-height // TILE), -(-width // TILE)
+    chunks, n = -(-F // CHUNK), _slots(B, F, height, width)
+    x0, y0 = _pixel_coords(height, width, multiplier, bb.dtype, row_start,
+                           total_height, bb.device)
+    c0 = torch.arange(0, width, TILE, device=bb.device)
+    r0 = torch.arange(0, height, TILE, device=bb.device)
+    c1 = (c0 + TILE).clamp(max=width) - 1
+    r1 = (r0 + TILE).clamp(max=height) - 1
+    xp = (bb[..., 0, None] <= x0[c1]) & (bb[..., 2, None] > x0[c0])
+    yp = (bb[..., 1, None] <= y0[r0]) & (bb[..., 3, None] > y0[r1])
+    b, f, r, c = (yp[..., :, None] & xp[..., None, :]).nonzero(
+        as_tuple=True)
+    slot = ((b * ty + r) * tx + c) * chunks + f // CHUNK
+    # a word's bits are distinct faces: their sum is their OR
+    words = torch.zeros(n * (CHUNK // 32), dtype=torch.int64,
+                        device=bb.device)
+    words.index_add_(0, slot * (CHUNK // 32) + f % CHUNK // 32,
+                     torch.ones_like(f) << (f % 32))
+    return words.to(torch.int32)
+
+
+def tile_bins(face_bboxes, row_start=0, *, height, width, total_height=None,
+              multiplier):
+    """Per-tile face lists: for every 16x16 tile of the (B, height, width)
+    image, the faces whose bbox overlaps the tile's pixel-centre rectangle
+    (``bb[0] <= x_hi and bb[2] > x_lo and bb[1] <= y_hi and bb[3] > y_lo``),
+    in slots of CHUNK consecutive face ids laid out batch entry, tile row,
+    tile column, id range: an int32 array of n slots of CHUNK / 32 words,
+    face f bit f % 32 of word f % CHUNK // 32 of its slot. Its size depends
+    on the shapes only (B * tiles * F / 8 bytes)."""
+    if total_height is None:
+        total_height = height
+    if not _is_cuda(face_bboxes):
+        return tile_bins_plain(face_bboxes, row_start, height=height,
+                               width=width, total_height=total_height,
+                               multiplier=multiplier)
+    (bbox,), _, dev, stream = _build.cuda_inputs('tile_bins', (face_bboxes,))
+    B, F, _ = bbox.shape
+    bins = _empty_bins(B, F, height, width, bbox.device)
+    _build.launch(_lib(), 'tile_bins', bbox.data_ptr(), bins.data_ptr(), B,
+                  F, height, width, int(row_start), int(total_height),
+                  _build.pixel_scale(multiplier, width),
+                  _build.pixel_scale(multiplier, total_height), dev, stream)
+    return bins
+
+
+def _empty_bins(B, F, height, width, device):
+    return torch.empty(_slots(B, F, height, width) * (CHUNK // 32),
+                       dtype=torch.int32, device=device)
+
+
+def _bins(bins, B, F, height, width, device):
+    """(lists, bin first): ``bins`` if given, else room for the kernel to
+    bin its own bboxes into."""
+    if bins is None:
+        return _empty_bins(B, F, height, width, device), 1
+    _build.check_shapes('tile_bins', bins,
+                        (_slots(B, F, height, width) * (CHUNK // 32),))
+    return bins, 0
+
+
 def _lib():
     return _build.load('rasterize', _SIGNATURES)
 
@@ -172,9 +256,11 @@ def _is_cuda(t):
 
 def rasterize_interp(face_vertices_z, face_vertices_image_flat, face_bboxes,
                      face_features_flat, row_start=0, *, height, width,
-                     total_height=None, multiplier, eps):
+                     total_height=None, multiplier, eps, bins=None):
     """Per pixel: winner face, its barycentric weights and its interpolated
-    features. Returns (features (B,H,W,D), face_idx (B,H,W) int32, -1 where
+    features. ``bins``: the lists of :func:`tile_bins` of bboxes that hold
+    ``face_bboxes`` (default: those of ``face_bboxes``); CPU tensors take
+    none. Returns (features (B,H,W,D), face_idx (B,H,W) int32, -1 where
     uncovered, weights (B,H,W,3))."""
     if total_height is None:
         total_height = height
@@ -190,13 +276,20 @@ def rasterize_interp(face_vertices_z, face_vertices_image_flat, face_bboxes,
     D = feat.shape[-1] // 3
     _build.check_shapes('rasterize_interp', fz, (B, F, 3), img, (B, F, 6),
                         bbox, (B, F, 4), feat, (B, F, 3 * D))
+    if B * height * width == 0:         # no pixel: nothing to launch
+        return (fz.new_zeros((B, height, width, D)),
+                torch.zeros((B, height, width), dtype=torch.int32,
+                            device=fz.device),
+                fz.new_zeros((B, height, width, 3)))
+    lists, bin_first = _bins(bins, B, F, height, width, fz.device)
     idx = torch.empty((B, height, width), dtype=torch.int32, device=fz.device)
     weights = fz.new_empty((B, height, width, 3))
     features = fz.new_empty((B, height, width, D))
     _build.launch(
         _lib(), 'rasterize_interp', fz.data_ptr(), img.data_ptr(),
-        bbox.data_ptr(), feat.data_ptr(), idx.data_ptr(),
-        weights.data_ptr(), features.data_ptr(), B, F, height, width, D,
+        bbox.data_ptr(), feat.data_ptr(), lists.data_ptr(), bin_first,
+        idx.data_ptr(), weights.data_ptr(), features.data_ptr(), B, F,
+        height, width, D,
         int(row_start), int(total_height),
         _build.pixel_scale(multiplier, width),
         _build.pixel_scale(multiplier, total_height), eps, dev, stream)
@@ -209,9 +302,10 @@ rasterize_interp.launches = 0
 
 def rasterize_select(face_vertices_z, face_vertices_image_flat, face_bboxes,
                      row_start=0, *, height, width, total_height=None,
-                     multiplier, eps):
-    """Per pixel: winner face and its interpolated z. Returns (zbuf
-    (B,H,W), face_idx (B,H,W) int32), -inf and -1 where uncovered."""
+                     multiplier, eps, bins=None):
+    """Per pixel: winner face and its interpolated z; ``bins`` as for
+    :func:`rasterize_interp`. Returns (zbuf (B,H,W), face_idx (B,H,W)
+    int32), -inf and -1 where uncovered."""
     if total_height is None:
         total_height = height
     if not _is_cuda(face_vertices_z):
@@ -225,12 +319,18 @@ def rasterize_select(face_vertices_z, face_vertices_image_flat, face_bboxes,
     B, F, _ = fz.shape
     _build.check_shapes('rasterize_select', fz, (B, F, 3), img, (B, F, 6),
                         bbox, (B, F, 4))
+    if B * height * width == 0:         # no pixel: nothing to launch
+        return (fz.new_zeros((B, height, width)),
+                torch.zeros((B, height, width), dtype=torch.int32,
+                            device=fz.device))
+    lists, bin_first = _bins(bins, B, F, height, width, fz.device)
     zbuf = fz.new_empty((B, height, width))
     idx = torch.empty((B, height, width), dtype=torch.int32, device=fz.device)
     _build.launch(
         _lib(), 'rasterize_select', fz.data_ptr(), img.data_ptr(),
-        bbox.data_ptr(), zbuf.data_ptr(), idx.data_ptr(), B, F, height,
-        width, int(row_start), int(total_height),
+        bbox.data_ptr(), lists.data_ptr(), bin_first, zbuf.data_ptr(),
+        idx.data_ptr(), B, F, height, width, int(row_start),
+        int(total_height),
         _build.pixel_scale(multiplier, width),
         _build.pixel_scale(multiplier, total_height), eps, dev, stream)
     rasterize_select.launches += 1

@@ -15,6 +15,10 @@ them in a spatially sorted order instead and so differ where ``knum``
 binds; the port has no such case. The Pallas backward's moment form is not
 carried over: the backward follows the XLA formulas per pixel.
 
+On the card the forward walks per-tile face lists in id order
+(``rasterize.tile_bins``): its own bboxes', or those ``bins`` it is
+given.
+
 For the backward the forward also returns the cut: per uncovered pixel the
 id of its ``knum``-th recorded face, or F where it recorded fewer, and -1
 on covered pixels. Face f was recorded at pixel p iff its enlarged bbox
@@ -26,7 +30,7 @@ import ctypes
 import torch
 
 from . import _build
-from .rasterize import _pixel_coords, _is_cuda
+from .rasterize import _bins, _pixel_coords, _is_cuda
 
 __all__ = ['soft_mask_forward', 'soft_mask_forward_plain',
            'soft_mask_backward', 'soft_mask_backward_plain']
@@ -34,7 +38,8 @@ __all__ = ['soft_mask_forward', 'soft_mask_forward_plain',
 _EPS = 1e-7
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    'soft_mask_forward': [_P] * 5 + [_I] * 7 + [_F] * 5 + [_I, _P],
+    'soft_mask_forward': ([_P] * 4 + [_I] + [_P] * 2 + [_I] * 7 + [_F] * 5
+                          + [_I, _P]),
     'soft_mask_backward': [_P] * 7 + [_I] * 6 + [_F] * 5 + [_I, _P],
 }
 _PLAIN_BUDGET = 1 << 24
@@ -201,7 +206,7 @@ def _lib():
 
 def soft_mask_forward(img_scaled, bboxes, selected_face_idx, row_start=0, *,
                       height, width, total_height=None, knum, sigmainv,
-                      multiplier, return_cut=False):
+                      multiplier, return_cut=False, bins=None):
     """Soft mask: 1 on covered pixels, ``1 - prod(1 - p)`` over the first
     ``knum`` enlarged-bbox hits on uncovered ones.
 
@@ -211,6 +216,10 @@ def soft_mask_forward(img_scaled, bboxes, selected_face_idx, row_start=0, *,
         selected_face_idx: (B, H, W) int32 from the rasterizer.
         return_cut (bool): also return the cut that
             :func:`soft_mask_backward` takes.
+        bins: on the card, the per-tile face lists the kernel walks
+            (:func:`~kaolin_tpu_torch.kernels.rasterize.tile_bins` of
+            bboxes that hold ``bboxes``); by default those of ``bboxes``.
+            CPU tensors take none.
 
     Returns:
         (B, H, W) soft mask, and with ``return_cut`` the (B, H, W) int32
@@ -228,12 +237,16 @@ def soft_mask_forward(img_scaled, bboxes, selected_face_idx, row_start=0, *,
     B, F, _ = img.shape
     _build.check_shapes('soft_mask_forward', img, (B, F, 6), bbox, (B, F, 4),
                         idx, (B, height, width))
+    if B * height * width == 0:         # no pixel: nothing to launch
+        mask = img.new_zeros((B, height, width))
+        return (mask, idx.clone()) if return_cut else mask
+    lists, bin_first = _bins(bins, B, F, height, width, img.device)
     mask = img.new_empty((B, height, width))
     cut = (torch.empty((B, height, width), dtype=torch.int32,
                        device=img.device) if return_cut else None)
     _build.launch(
         _lib(), 'soft_mask_forward', img.data_ptr(), bbox.data_ptr(),
-        idx.data_ptr(), mask.data_ptr(),
+        idx.data_ptr(), lists.data_ptr(), bin_first, mask.data_ptr(),
         cut.data_ptr() if return_cut else None, B, F, height, width,
         int(row_start), int(total_height), int(knum),
         _build.pixel_scale(multiplier, width),

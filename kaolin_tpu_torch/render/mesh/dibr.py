@@ -12,14 +12,20 @@ The analytic backward (``soft_mask_backward``, beside the forward) gives
 the gradient of the image verts. When that gradient is needed, the forward
 also returns the cut (which faces each pixel recorded) and saves it with
 its scaled inputs.
+
+On the card both forward kernels walk per-tile face lists
+(``kernels.rasterize.tile_bins``). ``dibr_rasterization`` makes them once,
+from the soft mask's enlarged bboxes, which hold the rasterizer's, and
+passes them to both.
 """
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from ...kernels import _build
+from ...kernels.rasterize import tile_bins
 from ...kernels.soft_mask import soft_mask_backward, soft_mask_forward
-from .rasterization import rasterize
+from .rasterization import _rasterize
 
 __all__ = ['dibr_soft_mask', 'dibr_rasterization']
 
@@ -39,9 +45,11 @@ class _DibrSoftMask(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, face_vertices_image, selected_face_idx, sigmainv,
-                boxlen, knum, multiplier, row_start, total_height):
-        img_scaled, bboxes = _scaled_inputs(face_vertices_image, boxlen,
-                                            multiplier)
+                boxlen, knum, multiplier, row_start, total_height, prepared):
+        # prepared: the scaled inputs and their per-tile lists, made by
+        # dibr_rasterization for both kernels, or None
+        img_scaled, bboxes, bins = prepared or (
+            *_scaled_inputs(face_vertices_image, boxlen, multiplier), None)
         B, H, W = selected_face_idx.shape
         ctx.shape = face_vertices_image.shape
         if face_vertices_image.shape[1] == 0:
@@ -51,11 +59,11 @@ class _DibrSoftMask(torch.autograd.Function):
         kw = dict(row_start=row_start, height=H, width=W,
                   total_height=total_height, sigmainv=sigmainv,
                   multiplier=multiplier)
+        fkw = dict(kw, knum=knum, **({} if bins is None else {'bins': bins}))
         if not ctx.needs_input_grad[0]:
-            return soft_mask_forward(img_scaled, bboxes, face_idx, knum=knum,
-                                     **kw)
-        mask, cut = soft_mask_forward(img_scaled, bboxes, face_idx, knum=knum,
-                                      return_cut=True, **kw)
+            return soft_mask_forward(img_scaled, bboxes, face_idx, **fkw)
+        mask, cut = soft_mask_forward(img_scaled, bboxes, face_idx,
+                                      return_cut=True, **fkw)
         ctx.save_for_backward(img_scaled, bboxes, cut, mask)
         ctx.kw = kw
         return mask
@@ -64,10 +72,10 @@ class _DibrSoftMask(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, grad_soft_mask):
         if ctx.shape[1] == 0:
-            return (grad_soft_mask.new_zeros(ctx.shape),) + (None,) * 7
+            return (grad_soft_mask.new_zeros(ctx.shape),) + (None,) * 8
         grad = soft_mask_backward(*ctx.saved_tensors,
                                   grad_soft_mask.contiguous(), **ctx.kw)
-        return (grad.reshape(ctx.shape),) + (None,) * 7
+        return (grad.reshape(ctx.shape),) + (None,) * 8
 
 
 def dibr_soft_mask(face_vertices_image, selected_face_idx, sigmainv=7000,
@@ -98,13 +106,21 @@ def dibr_soft_mask(face_vertices_image, selected_face_idx, sigmainv=7000,
         (B, H, W) soft mask.
     """
     del knum_exact
+    return _dibr_soft_mask(face_vertices_image, selected_face_idx, sigmainv,
+                           boxlen, knum, multiplier, row_start, total_height,
+                           backend)
+
+
+def _dibr_soft_mask(face_vertices_image, selected_face_idx, sigmainv, boxlen,
+                    knum, multiplier, row_start, total_height, backend,
+                    prepared=None):
     _build.check_backend('dibr_soft_mask', backend)
     if total_height is None:
         total_height = selected_face_idx.shape[1]
     return _DibrSoftMask.apply(
         face_vertices_image, selected_face_idx, float(sigmainv),
         float(boxlen), int(knum), float(multiplier), int(row_start),
-        int(total_height))
+        int(total_height), prepared)
 
 
 def dibr_rasterization(height, width, face_vertices_z, face_vertices_image,
@@ -122,13 +138,25 @@ def dibr_rasterization(height, width, face_vertices_z, face_vertices_image,
     Returns:
         (interpolated_features, soft_mask, face_idx).
     """
-    interpolated_features, face_idx = rasterize(
+    del knum_exact
+    _multiplier = 1000. if multiplier is None else float(multiplier)
+    prepared = None
+    if (face_vertices_image.is_cuda and face_vertices_image.shape[1] > 0
+            and boxlen * _multiplier >= 0.):
+        # the enlarged bboxes hold the rasterizer's (the same scaled verts,
+        # a margin >= 0): one binning serves both kernels
+        with torch.no_grad():
+            img_scaled, bboxes = _scaled_inputs(face_vertices_image.detach(),
+                                                float(boxlen), _multiplier)
+        prepared = (img_scaled, bboxes, tile_bins(
+            bboxes, row_start, height=height, width=width,
+            total_height=total_height, multiplier=_multiplier))
+    interpolated_features, face_idx = _rasterize(
         height, width, face_vertices_z, face_vertices_image, face_features,
         face_normals_z >= 0., multiplier, eps, rast_backend,
-        row_start=row_start, total_height=total_height)
-    _multiplier = 1000. if multiplier is None else multiplier
-    soft_mask = dibr_soft_mask(face_vertices_image, face_idx, sigmainv,
-                               boxlen, knum, _multiplier,
-                               row_start=row_start, total_height=total_height,
-                               backend=mask_backend, knum_exact=knum_exact)
+        row_start=row_start, total_height=total_height,
+        bins=prepared and prepared[2])
+    soft_mask = _dibr_soft_mask(face_vertices_image, face_idx, sigmainv,
+                                boxlen, knum, _multiplier, row_start,
+                                total_height, mask_backend, prepared)
     return interpolated_features, soft_mask, face_idx

@@ -47,9 +47,10 @@ def _kernel_inputs(face_vertices_z, face_vertices_image, valid_faces,
 
 def _rasterize_forward(height, width, multiplier, eps, total_height,
                        face_vertices_z, face_vertices_image, face_features,
-                       valid_faces, row_start):
+                       valid_faces, row_start, bins=None):
     """Returns (features (B,H,W,D), face_idx (B,H,W) int32, weights
-    (B,H,W,3)) for rows ``row_start ..`` of a ``total_height`` image."""
+    (B,H,W,3)) for rows ``row_start ..`` of a ``total_height`` image.
+    ``bins``: the kernels' per-tile face lists, if the caller has them."""
     B, F = face_vertices_image.shape[:2]
     feat_dim = face_features.shape[-1]
     if F == 0:
@@ -67,6 +68,8 @@ def _rasterize_forward(height, width, multiplier, eps, total_height,
     feats_flat = face_features.reshape(B, F, 3 * feat_dim)
     kw = dict(height=height, width=width, total_height=total_height,
               multiplier=multiplier, eps=eps)
+    if bins is not None:
+        kw['bins'] = bins
     if 14 + 3 * feat_dim <= 128:
         return _k.rasterize_interp(fz, img_flat, bboxes, feats_flat,
                                    row_start, **kw)
@@ -82,10 +85,10 @@ class _Rasterize(torch.autograd.Function):
     @staticmethod
     def forward(ctx, face_vertices_z, face_vertices_image, face_features,
                 valid_faces, height, width, multiplier, eps, row_start,
-                total_height):
+                total_height, bins):
         features, face_idx, weights = _rasterize_forward(
             height, width, multiplier, eps, total_height, face_vertices_z,
-            face_vertices_image, face_features, valid_faces, row_start)
+            face_vertices_image, face_features, valid_faces, row_start, bins)
         ctx.mark_non_differentiable(face_idx)
         # the culled faces, which own no pixel, for the backward to skip
         valid = (None if valid_faces is None
@@ -105,14 +108,14 @@ class _Rasterize(torch.autograd.Function):
         D = face_features.shape[-1]
         if F == 0:
             return (None, torch.zeros_like(face_vertices_image),
-                    torch.zeros_like(face_features)) + (None,) * 7
+                    torch.zeros_like(face_features)) + (None,) * 8
         grad_img, grad_feat = rasterize_backward(
             grad_features.contiguous(), face_idx, weights,
             face_vertices_image.reshape(B, F, 6),
             face_features.reshape(B, F, 3 * D), ctx.row_start,
             total_height=ctx.total_height, eps=ctx.eps, valid_faces=valid)
         return (None, grad_img.reshape(B, F, 3, 2),
-                grad_feat.reshape(B, F, 3, D)) + (None,) * 7
+                grad_feat.reshape(B, F, 3, D)) + (None,) * 8
 
 
 def rasterize(height, width, face_vertices_z, face_vertices_image,
@@ -149,6 +152,16 @@ def rasterize(height, width, face_vertices_z, face_vertices_image,
         ``face_features`` was a list — and face_idx (B, H, W) int32,
         -1 where uncovered).
     """
+    return _rasterize(height, width, face_vertices_z, face_vertices_image,
+                      face_features, valid_faces, multiplier, eps, backend,
+                      row_start, total_height)
+
+
+def _rasterize(height, width, face_vertices_z, face_vertices_image,
+               face_features, valid_faces=None, multiplier=None, eps=None,
+               backend='auto', row_start=0, total_height=None, bins=None):
+    """:func:`rasterize`, on the card over ``bins`` (the per-tile face lists
+    of bboxes that hold the faces' own) when given."""
     _build.check_backend('rasterize', backend)
     if multiplier is None:
         multiplier = 1000
@@ -162,7 +175,7 @@ def rasterize(height, width, face_vertices_z, face_vertices_image,
     image_features, face_idx = _Rasterize.apply(
         face_vertices_z, face_vertices_image, _face_features, valid_faces,
         int(height), int(width), float(multiplier), float(eps),
-        int(row_start), int(total_height))
+        int(row_start), int(total_height), bins)
     if is_multi:
         outs = []
         cur = 0

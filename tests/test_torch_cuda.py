@@ -132,6 +132,160 @@ def test_no_faces_on_card(cuda):
     assert [c.launches for c in counters] == before
 
 
+FWD_CASES = ['sphere', 'large', 'edges', 'slab', 'ties', 'offscreen', 'many']
+
+
+def _same_bits(a, b):
+    if a.is_floating_point():
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def _fwd_scene(case, device):
+    """The forward kernels' inputs for a scene: rasterize's (z, scaled
+    verts, bboxes with culled faces empty, flat features), the soft mask's
+    (scaled verts, enlarged bboxes) and the image (H, W, row_start,
+    total_height). 'many': 3,000 faces over a few tiles of a 128x128 image
+    (lists of several slots and stages)."""
+    H = W = 64
+    row_start, total, valid = 0, 64, None
+    rng = np.random.default_rng(len(case))
+    if case in ('sphere', 'large'):
+        subdiv, scale = (2, 1.) if case == 'sphere' else (1, 1.35)
+        verts, faces, rot, trans, proj = kt.utils.interop.scene(
+            2, subdiv, device=device)
+        fvc, fvi, fn = kt.render.mesh.prepare_vertices(
+            verts * scale, faces, proj, camera_rot=rot, camera_trans=trans)
+        ff = torch.cat([fvc, torch.ones(fvc.shape[:3] + (1,),
+                                        device=device)], -1)
+        fvz, valid = fvc[..., 2], fn[..., 2] >= 0.
+    else:
+        n = 3000 if case == 'many' else 40
+        fvi = rng.uniform(-0.9, 0.9, (2, n, 1, 2)) + rng.uniform(
+            -0.2, 0.2, (2, n, 3, 2))
+        fvz = -1. - rng.random((2, n, 3))
+        if case == 'many':
+            H = W = total = 128
+            fvi = rng.uniform(-0.1, 0.1, (2, n, 1, 2)) + rng.uniform(
+                -0.03, 0.03, (2, n, 3, 2))
+        elif case == 'edges':
+            # vertices on pixel centres, bboxes ending on tile edges'
+            cols = rng.choice([14, 15, 16, 17, 31, 32, 33, 47, 48],
+                              (2, n, 3))
+            rows = rng.choice([14, 15, 16, 17, 31, 32, 47, 48, 49],
+                              (2, n, 3))
+            fvi = np.stack([(2 * cols + 1 - W) / W, (H - 2 * rows - 1) / H],
+                           -1)
+        elif case == 'slab':
+            H, row_start, total = 24, 20, 72
+        elif case == 'ties':
+            fvz[:, :20:3] = 0.
+            fvz[:, 1:20:6] = -0.
+            fvi[:, 20:] = fvi[:, :20]
+            fvz[:, 20:] = fvz[:, :20]
+        elif case == 'offscreen':
+            fvi[:, :15] += 3.
+            fvi[:, 15:20] -= 3.
+        fvi = torch.tensor(fvi, dtype=torch.float32, device=device)
+        fvz = torch.tensor(fvz, dtype=torch.float32, device=device)
+        ff = torch.tensor(rng.random((2, n, 3, 3)), dtype=torch.float32,
+                          device=device)
+    fz, img, bbox = _kernel_inputs(fvz, fvi, valid, 1000.)
+    sm_img, sm_bbox = _scaled_inputs(fvi, 0.02, 1000.)
+    B, F = fvi.shape[:2]
+    return ((fz, img, bbox, ff.reshape(B, F, -1)), (sm_img, sm_bbox),
+            (H, W, row_start, total))
+
+
+@pytest.mark.parametrize('case', FWD_CASES)
+def test_tile_bins_match_plain(cuda, case):
+    """The card's per-tile lists are the plain binning's, bit for bit, and
+    two launches agree."""
+    (_, _, bbox, _), (_, sm_bbox), (H, W, row_start, total) = _fwd_scene(
+        case, cuda)
+    kw = dict(height=H, width=W, total_height=total, multiplier=1000.)
+    for bb in (bbox, sm_bbox):
+        bins = kr.tile_bins(bb, row_start, **kw)
+        assert torch.equal(bins, kr.tile_bins_plain(bb, row_start, **kw))
+        assert torch.equal(bins, kr.tile_bins(bb, row_start, **kw))
+        assert bool(bins.any())
+
+
+@pytest.mark.parametrize('case', FWD_CASES)
+def test_forward_kernels_scenes(cuda, case):
+    """Both rasterize modes and the soft mask (knum 1, 2, 30 and F) against
+    their plain versions, over their own lists and over the soft mask's
+    enlarged ones (``dibr_rasterization``'s shared binning); two launches
+    bit-identical; one count a call."""
+    (fz, img, bbox, feat), (sm_img, sm_bbox), (H, W, row_start, total) = \
+        _fwd_scene(case, cuda)
+    F = fz.shape[1]
+    kw = dict(height=H, width=W, total_height=total, multiplier=1000.,
+              eps=1e-8)
+    shared = kr.tile_bins(sm_bbox, row_start, height=H, width=W,
+                          total_height=total, multiplier=1000.)
+    ref = kr.rasterize_interp_plain(fz, img, bbox, feat, row_start, **kw)
+    ref_s = kr.rasterize_select_plain(fz, img, bbox, row_start, **kw)
+    assert bool((ref[1] >= 0).any())
+    for bkw in ({}, {'bins': shared}):
+        n = kr.rasterize_interp.launches, kr.rasterize_select.launches
+        out = kr.rasterize_interp(fz, img, bbox, feat, row_start, **kw, **bkw)
+        again = kr.rasterize_interp(fz, img, bbox, feat, row_start, **kw,
+                                    **bkw)
+        sel = kr.rasterize_select(fz, img, bbox, row_start, **kw, **bkw)
+        sel2 = kr.rasterize_select(fz, img, bbox, row_start, **kw, **bkw)
+        assert (kr.rasterize_interp.launches, kr.rasterize_select.launches
+                ) == (n[0] + 2, n[1] + 2)
+        for o, a, r in zip(out + sel, again + sel2, ref + ref_s):
+            assert torch.equal(o, r) and _same_bits(o, a)
+    idx = ref[1]
+    for knum in (1, 2, 30, F):
+        skw = dict(height=H, width=W, total_height=total, knum=knum,
+                   sigmainv=7000., multiplier=1000.)
+        m_p, c_p = ks.soft_mask_forward_plain(sm_img, sm_bbox, idx, row_start,
+                                              return_cut=True, **skw)
+        for bkw in ({}, {'bins': shared}):
+            n = ks.soft_mask_forward.launches
+            m, c = ks.soft_mask_forward(sm_img, sm_bbox, idx, row_start,
+                                        return_cut=True, **skw, **bkw)
+            m2, c2 = ks.soft_mask_forward(sm_img, sm_bbox, idx, row_start,
+                                          return_cut=True, **skw, **bkw)
+            assert ks.soft_mask_forward.launches == n + 2
+            torch.testing.assert_close(m, m_p, rtol=0, atol=1e-6)
+            assert torch.equal(c, c_p)
+            assert _same_bits(m, m2) and torch.equal(c, c2)
+
+
+def test_forward_empty_calls_count_no_launch(cuda):
+    """A forward call with no pixel launches and counts nothing; one with
+    no faces launches once and writes the empty render."""
+    counters = (kr.rasterize_interp, kr.rasterize_select,
+                ks.soft_mask_forward)
+    before = [c.launches for c in counters]
+    kw = dict(multiplier=1000., eps=1e-8)
+    skw = dict(knum=3, sigmainv=7000., multiplier=1000.)
+    for B, h, w in ((0, 16, 16), (2, 0, 16), (2, 16, 0)):
+        fz, img, bbox = (torch.zeros(B, 5, k, device=cuda) for k in (3, 6, 4))
+        feat = torch.zeros(B, 5, 12, device=cuda)
+        f, i, wt = kr.rasterize_interp(fz, img, bbox, feat, height=h,
+                                       width=w, **kw)
+        assert f.shape == (B, h, w, 4) and i.shape == (B, h, w)
+        z, i = kr.rasterize_select(fz, img, bbox, height=h, width=w, **kw)
+        assert z.shape == (B, h, w)
+        m, c = ks.soft_mask_forward(img, bbox, i, height=h, width=w,
+                                    return_cut=True, **skw)
+        assert m.shape == c.shape == (B, h, w)
+    assert [c.launches for c in counters] == before
+    empty = [torch.zeros(2, 0, k, device=cuda) for k in (3, 6, 4, 12)]
+    f, i, wt = kr.rasterize_interp(*empty, height=8, width=8, **kw)
+    m, c = ks.soft_mask_forward(empty[1], empty[2], i, height=8, width=8,
+                                return_cut=True, **skw)
+    assert bool((i == -1).all()) and not f.any() and not wt.any()
+    assert not m.any() and bool((c == 0).all())
+    assert [c.launches for c in counters] == [before[0] + 1, before[1],
+                                              before[2] + 1]
+
+
 def test_render_on_card_matches_cpu(cuda):
     verts, faces, rot, trans, proj = kt.utils.interop.scene(2, 2,
                                                             device=cuda)

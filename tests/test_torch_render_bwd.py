@@ -484,6 +484,9 @@ def test_constants_match_sources():
 
     def consts(name):
         text = (csrc / f'{name}.cu').read_text()
+        # the constants of the headers it includes come first
+        for header in re.findall(r'#include "(\w+\.cuh)"', text):
+            text = (csrc / header).read_text() + text
         out = {}
         for key, expr in re.findall(r'constexpr int (\w+) = ([^;]+);', text):
             out[key] = eval(expr, {}, dict(out))
