@@ -36,7 +36,8 @@ ran in it:
   sphere shell of radius 0.7 quantized at level 8, 256x256 primary rays
   from (0, 0, 2.5) with a 60-degree fov, ``unbatched_raytrace`` from the
   origin and direction arrays), timed as ``spc_raytrace_256_L8``; its first
-  hits are held against the analytic sphere.
+  hits are held against the analytic sphere, and a trace must make one
+  host sync (``torch.cuda.set_sync_debug_mode``).
 
 The grid-sample forward, ``p2m_select``, ``nearest_idx_pruned`` and
 ``deftet_topk`` are also timed by the card alone (``torch.profiler``'s
@@ -97,21 +98,31 @@ counts that size their designs are logged for each size (``forward
 counts`` and ``backward counts`` lines). The brute-force ``nearest_idx``
 is also timed at the mesh fit's F-score shape (10,000 x 10,000 points).
 
-``python3 chip_smoke.py --compare LABEL`` instead prints ``nvcc -Xptxas
--v`` for the render kernels' sources and times only the forward render
-kernels and the forward render at D = 4 and 40, both render backwards
+The grid-sample backward's texture gradient must be the same bits at two
+launches (the second with the forward's interleaved copy) in every case,
+and the traversal, run with a budget too small for config 5's levels,
+must size them exactly, trace again and equal its plain version.
+
+``python3 chip_smoke.py --compare LABEL [GROUP ...]`` instead prints
+``nvcc -Xptxas -v`` for the render kernels' sources (and
+``grid_sample.cu``, ``spc_traverse.cu``), the texture backward's counts,
+``grid_sample_backward`` at the step's and a random cotangent,
+``traverse`` and the config 5 trace (each with its device time, device
+activities, host syncs and device time a level), and times the forward
+render kernels and the forward render at D = 4 and 40, both render backwards
 (bench, config 2 and the large-faces scene; rasterize at D = 4 and 40),
 the bench and config 2 train steps (with their device time),
 ``grid_sample``, ``F.grid_sample``, ``p2m_select`` on its three scenes,
 ``nearest_idx_pruned`` on config 3, the sphere-centre scene and two
 clouds of NN_BIG points, ``nearest_idx`` at the F-score's shape,
 ``deftet_topk`` on config 4 at knum 30 and 300 and on the full-cover
-scene, and the textured, config 3 and config 4 steps (see ``compare``),
-through phase
-functions that call nothing older checkouts lack: copy the script into a
-parent's checkout to time it there.
+scene, and the textured, config 3 and config 4 steps (see ``compare``
+for the groups that select them), through phase functions that call
+nothing older checkouts lack: copy the script into a parent's checkout
+to time it there.
 """
 
+import contextlib
 import ctypes
 import inspect
 import json
@@ -276,12 +287,12 @@ GRAD_TOL = 1e-4
 # the same order without fused multiply-adds, so the samples are held
 # bit-equal, and the coordinate gradients are expected bit-equal (held to
 # GRAD_TOL entry by entry). The texture gradient adds each texel's terms
-# with float32 atomics in no fixed order (as the plain version's
-# scatter_add_ does), and a texel may take 10^5 terms (the background
-# texel of config 2's step under a random cotangent): it is held against
-# the plain version in float64, every entry within GRAD_TOL * (|ref| +
-# median nonzero |ref|) plus TOL_ATOMIC times the sum of its terms'
-# magnitudes
+# in float32 in another order than the plain version's scatter_add_ (a
+# fixed one: two launches must give the same bits), and a texel may take
+# 10^5 terms (the background texel of config 2's step under a random
+# cotangent): it is held against the plain version in float64, every
+# entry within GRAD_TOL * (|ref| + median nonzero |ref|) plus TOL_ATOMIC
+# times the sum of its terms' magnitudes
 TOL_ATOMIC = 1e-6
 
 KERNELS = {
@@ -1076,7 +1087,8 @@ def nn_fscore_times(label):
     out = dict(ms=time_ms(fn, TIME_ITERS),
                device_ms=device_ms(f'[{label}] nearest_idx, {FIT3_EVAL} x '
                                    f'{FIT3_EVAL}', fn),
-               bound_ms=bnd[0], bound_by=bnd[1])
+               bound_ms=bnd[0], bound_by=bnd[1],
+               library_ms=time_ms(lambda: cdist_argmin(p1, p2), TIME_ITERS))
     log(f'[{label}] time nearest_idx ({FIT3_EVAL} x {FIT3_EVAL} points, the '
         'mesh fit\'s F-score): ' + json.dumps(out))
     return out
@@ -1107,16 +1119,20 @@ def grid_sample_checks(label, maps, ix, iy, cots, errs):
         expect(same, f'[{label}] grid_sample {mode} is not bit-equal to its '
                'plain version')
         errs['grid_sample'] = max(errs['grid_sample'], e)
+        inter = ktex._grid_sample(maps, ix, iy, mode)[1]
         for cot_name, cot in cots:
             tag = f'[{label}] grid_sample_backward {mode} {cot_name} cotangent'
             out = ktex.grid_sample_backward(maps, ix, iy, cot, mode)
-            again = ktex.grid_sample_backward(maps, ix, iy, cot, mode)
+            again = ktex.grid_sample_backward(maps, ix, iy, cot, mode, inter)
             ref = ktex.grid_sample_backward_plain(maps, ix, iy, cot, mode)
             torch.cuda.synchronize()
             worst = atomic_close(f'{tag} grad texture', out[0], ref[0],
                                  maps, ix, iy, cot, mode)
-            log(f'{tag} grad texture: largest difference between two '
-                f'launches {max_err(out[0], again[0]):.3e}')
+            stable = same_bits(out[0], again[0])
+            log(f'{tag} grad texture: two launches (the second with the '
+                f'forward\'s interleaved copy) bit-identical {stable}, '
+                f'largest difference {max_err(out[0], again[0]):.3e}')
+            expect(stable, f'{tag}: two launches differ in grad texture')
             for name, o, a, r in zip(('ix', 'iy'), out[1:], again[1:],
                                      ref[1:]):
                 if mode == 'nearest':
@@ -1129,18 +1145,49 @@ def grid_sample_checks(label, maps, ix, iy, cots, errs):
                 same, exact = bool(torch.equal(o, a)), bool(torch.equal(o, r))
                 log(f'{tag} grad {name}: two launches bit-identical {same}, '
                     f'bit-equal to the plain version {exact}')
-                expect(same, f'{tag}: two launches differ in grad {name}')
+                expect(same and exact, f'{tag}: grad {name} differs between '
+                       'two launches or from the plain version')
             errs['grid_sample_backward'] = max(errs['grid_sample_backward'],
                                                worst)
 
 
+def zero_cotangent_checks(maps, ix, iy):
+    """The backward with no live point (a zero cotangent, and no channel)
+    at the step's points, both modes, on a scratch that the caching
+    allocator hands back holding 0x7f bytes (as an int, an index far past
+    every buffer): the texture gradient must be zero, dix and diy the plain
+    version's, and nothing may fault."""
+    B, C, th, tw = maps.shape
+    P = ix.shape[1]
+    for c in (C, 0):
+        m = maps[:, :c].contiguous()
+        cot = torch.zeros(B, P, c, device='cuda')
+        for mode in ('bilinear', 'nearest'):
+            nbytes, *_, slots = ktex._backward_layout(
+                B, c, th, tw, P, mode == 'nearest', False)
+            junk = torch.full((nbytes,), 0x7f, dtype=torch.uint8,
+                              device='cuda')
+            del junk
+            out = ktex.grid_sample_backward(m, ix, iy, cot, mode)
+            ref = ktex.grid_sample_backward_plain(m, ix, iy, cot, mode)
+            torch.cuda.synchronize()
+            ok = (not out[0].any() and bool(torch.equal(out[1], ref[1]))
+                  and bool(torch.equal(out[2], ref[2])))
+            log(f'[textured] grid_sample_backward {mode}, C = {c}, zero '
+                f'cotangent on a dirty scratch ({slots} slots of partial '
+                f'tiles): zero texture gradient, dix and diy equal to the '
+                f'plain version {ok}')
+            expect(ok, f'[textured] grid_sample_backward {mode}, C = {c}: '
+                   'a zero cotangent gave a nonzero gradient')
+
+
 def atomic_close(label, out, plain, maps, ix, iy, cot, mode):
-    """Checks a texture gradient summed with atomics against the plain
-    version in float64, entry by entry: |out - ref| <= GRAD_TOL * (|ref| +
-    median nonzero |ref|) + TOL_ATOMIC * (the sum of the entry's terms'
-    magnitudes). Prints the float32 plain version's ratio under the same
-    rule beside the kernel's; returns the kernel's largest absolute
-    error."""
+    """Checks a texture gradient, a sum in another order than the plain
+    version's, against the plain version in float64, entry by entry:
+    |out - ref| <= GRAD_TOL * (|ref| + median nonzero |ref|) + TOL_ATOMIC
+    * (the sum of the entry's terms' magnitudes). Prints the float32 plain
+    version's ratio under the same rule beside the kernel's; returns the
+    kernel's largest absolute error."""
     f64 = [t.double() for t in (maps, ix, iy, cot)]
     ref = ktex.grid_sample_backward_plain(*f64, mode)[0]
     mass = ktex.grid_sample_backward_plain(*f64[:3], f64[3].abs(), mode)[0]
@@ -1184,6 +1231,8 @@ def texture_phases(tsc):
     uncovered = float((cot == 0).all(-1).float().mean())
     log(f'[textured] {B}x{P} sample points, {uncovered:.4f} of them with a '
         'zero cotangent in the step')
+    grid_sample_counts('[textured step cotangent]', tex, ix, iy, cot)
+    grid_sample_counts('[textured random cotangent]', tex, ix, iy, rand_cot)
     errs = dict.fromkeys(('grid_sample', 'grid_sample_backward'), 0.)
     grid_sample_checks('config2 UV map', tex, ix, iy,
                        (('train', cot), ('random', rand_cot)), errs)
@@ -1191,6 +1240,7 @@ def texture_phases(tsc):
                        *rand_coords(th, tw), (('random', rand_cot),), errs)
     grid_sample_checks('64x64 random coords', small, *rand_coords(64, 64),
                        (('random', rand_cot),), errs)
+    zero_cotangent_checks(tex, ix, iy)
 
     lib_fwd, grid = library_grid_sample(tex, ix, iy)
     cot_lib = cot.transpose(1, 2).reshape(B, C, 1, P).contiguous()
@@ -1251,6 +1301,136 @@ def sampler_times(label, tex, ix, iy):
                 device_ms=device_ms(f'{label} grid_sample', fn),
                 library_ms=time_ms(lib, TIME_ITERS),
                 library_device_ms=device_ms(f'{label} F.grid_sample', lib))
+
+
+# the texel tiles of grid_sample_backward's binning (csrc/grid_sample.cu
+# TILE), and the names its kernels take in a profile (the parent design's
+# one kernel, then the binned design's four)
+GS_TILE = 32
+GS_BWD_KERNELS = ('grid_sample_bwd_kernel', 'gs_bwd_')
+
+
+def grid_sample_counts(label, maps, ix, iy, cot):
+    """The counts that size ``grid_sample_backward``'s reduction at one
+    bilinear input, computed from the tensors (no kernel): the points with
+    a nonzero cotangent; the float adds a scatter of every nonzero term
+    makes (the atomics of a design that adds each); the texels they touch
+    and the most terms on one texel and channel; the (GS_TILE x GS_TILE
+    texel tile, live point) pairs; the live points a tile (mean, p99,
+    max); the share of live points whose taps straddle two or more
+    tiles."""
+    B, C, th, tw = maps.shape
+    dev = ix.device
+    live = (cot != 0).any(-1)
+    taps, wx, wy = ktex._bilinear_taps(ix, iy, th, tw)
+    ax, ay = 1 - wx, 1 - wy
+    plane = (torch.arange(B, device=dev)[:, None, None] * C
+             + torch.arange(C, device=dev)) * (th * tw)        # (B, 1, C)
+    per_addr = torch.zeros(B * C * th * tw, dtype=torch.int64, device=dev)
+    adds = 0
+    for idx, w1, w2 in zip(taps, (ax, wx, ax, wx), (ay, ay, wy, wy)):
+        nz = (cot * w1[..., None] * w2[..., None]) != 0
+        adds += int(nz.sum())
+        per_addr += torch.bincount((plane + idx[..., None])[nz],
+                                   minlength=per_addr.numel())
+    touched = int((per_addr.view(B, C, -1) > 0).any(1).sum())
+    tiles_x = -(-tw // GS_TILE)
+    keys = torch.stack([(i // tw) // GS_TILE * tiles_x + (i % tw) // GS_TILE
+                        for i in taps], -1).sort(-1).values     # (B, P, 4)
+    distinct = 1 + (keys[..., 1:] != keys[..., :-1]).sum(-1)
+    first = torch.cat([torch.ones_like(keys[..., :1], dtype=torch.bool),
+                       keys[..., 1:] != keys[..., :-1]], -1) & live[..., None]
+    ntiles = tiles_x * -(-th // GS_TILE)
+    tile_ids = (torch.arange(B, device=dev)[:, None, None] * ntiles
+                + keys)[first]
+    per_tile = torch.bincount(tile_ids, minlength=B * ntiles).double()
+    nlive = int(live.sum())
+    out = dict(points=live.numel(), live=nlive, atomic_adds=adds,
+               texels_touched=touched, most_terms_one_texel=int(
+                   per_addr.max()), tile_point_pairs=int(tile_ids.numel()),
+               tiles=B * ntiles, points_a_tile_mean=float(per_tile.mean()),
+               points_a_tile_p99=float(torch.quantile(per_tile, 0.99)),
+               points_a_tile_max=float(per_tile.max()),
+               straddle_share=float((distinct[live] >= 2).double().mean())
+               if nlive else 0.)
+    log(f'{label} grid_sample_backward counts: ' + json.dumps(out))
+    return out
+
+
+def sampler_backward_times(label, tex, ix, iy, cot, name):
+    """``grid_sample_backward`` at one cotangent: ms with CUDA events, the
+    card's own time and the CUDA activities a call launches."""
+    def fn():
+        return ktex.grid_sample_backward(tex, ix, iy, cot)
+    key = f'grid_sample_backward, {name}'
+    return dict(ms=time_ms(fn, TIME_ITERS),
+                device_ms=device_ms(f'[{label}] {key}', fn),
+                launches_per_call=launches_per_call(f'[{label}] {key}', fn))
+
+
+def host_syncs(fn):
+    """The synchronizing CUDA operations of one call of ``fn``, as
+    ``torch.cuda.set_sync_debug_mode('warn')`` reports them."""
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    # (the mode's first use also warns that it is a prototype)
+    return sum('called a synchronizing' in str(w.message) for w in caught)
+
+
+# the kernel that ends a level of the traversal in a profile: the parent
+# design's emit, the fused design's one kernel a level
+TRAV_LEVEL_END = ('spc_emit_kernel', 'spc_level_kernel')
+
+
+def level_device_ms(label, fn):
+    """The card's time of each level of one trace: the kernels, fills and
+    copies of one call of ``fn`` (``torch.profiler``) in start order, cut
+    after each level's last kernel; what follows the last level (the read
+    of the counts) is the last entry. None if the trace has no device
+    time."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    if not evs:
+        log(f'{label}: no device time in the trace; not measured')
+        return None
+    levels, cur = [], 0.
+    for e in evs:
+        cur += e.time_range.elapsed_us() / 1e3
+        if any(k in e.name for k in TRAV_LEVEL_END):
+            levels.append(round(cur, 5))
+            cur = 0.
+    levels.append(round(cur, 5))
+    log(f'{label}: device ms a level {levels[:-1]}, then {levels[-1]}; '
+        f'{len(evs)} device activities: '
+        + ', '.join(e.name[:32] for e in evs))
+    return levels
+
+
+def trace_times(label, name, fn):
+    """One traversal or trace: ms with CUDA events, the card's own time,
+    its device activities, its host syncs and each level's device time."""
+    out = dict(ms=time_ms(fn, TIME_ITERS),
+               device_ms=device_ms(f'[{label}] {name}', fn),
+               launches_per_call=launches_per_call(f'[{label}] {name}', fn),
+               host_syncs=host_syncs(fn),
+               level_device_ms=level_device_ms(f'[{label}] {name}', fn))
+    log(f'[{label}] time {name}: ' + json.dumps(out))
+    return out
 
 
 def reset_counters():
@@ -1409,7 +1589,7 @@ def profile_calls(label, fn, per_call_ms, iters=10, watch=()):
     if not kernels:
         log(f'{label}: no device time in the trace; busy share not '
             'measured')
-        return
+        return None
     kernels.sort(key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / iters
     log(f'{label}: device busy {busy_ms:.4f} ms of {per_call_ms:.4f} ms per '
@@ -1419,6 +1599,8 @@ def profile_calls(label, fn, per_call_ms, iters=10, watch=()):
         if i < 12 or any(w in e.key for w in watch):
             log(f'    {e.self_device_time_total / 1e3 / iters:.4f} ms in '
                 f'{e.count / iters:g} launches: {e.key[:70]}')
+    return dict(busy_ms=busy_ms, kernels={
+        e.key: e.self_device_time_total / 1e3 / iters for e in kernels})
 
 
 def check_against_cpu():
@@ -2434,6 +2616,41 @@ def traverse_checks(label, spc, o, d, with_exit, errs):
     return out
 
 
+@contextlib.contextmanager
+def small_budget(nuggets):
+    """The traversal's budget set to ``nuggets`` a level for a block."""
+    saved = kst.BUDGET_PER_RAY, kst.BUDGET_MIN
+    kst.BUDGET_PER_RAY, kst.BUDGET_MIN = 0, nuggets
+    try:
+        yield
+    finally:
+        kst.BUDGET_PER_RAY, kst.BUDGET_MIN = saved
+
+
+def forced_overflow(spc, o, d):
+    """The traversal with a budget far below config 5's levels: the card
+    sizes each level exactly and traces again, counted in
+    ``traverse.resized``; its outputs must equal the plain version's, and
+    with a cap below the count too."""
+    octree, ph, _, exsum = spc
+    for cap in (None, 1000):
+        before = kst.traverse.resized
+        with small_budget(4096):
+            out = kst.traverse(octree, exsum, ph, o, d, C5_LEVEL, True, cap)
+        ref = kst.traverse_plain(octree, exsum, ph, o, d, C5_LEVEL, True,
+                                 cap)
+        torch.cuda.synchronize()
+        same = all(bool(torch.equal(a, b)) for a, b in zip(out[:3], ref[:3]))
+        log(f'[config5] forced overflow (budget 4096 nuggets a level, cap '
+            f'{cap}): traced again {kst.traverse.resized - before} time(s), '
+            f'{out[3]} hits, per level {out[4]}; equal to the plain version '
+            f'{same and out[3:] == ref[3:]}')
+        expect(kst.traverse.resized == before + 1 and same
+               and out[3:] == ref[3:], '[config5] the forced overflow did '
+               'not size the levels exactly, or disagrees with the plain '
+               'version')
+
+
 def traverse_bound(spc, o, d, with_exit, hits):
     """(bound ms, 'bytes' or 'operations') of one level-C5_LEVEL trace: per
     level, each nugget's ray and cell set-up and the slab test of each
@@ -2472,6 +2689,7 @@ def traverse_kernel_phases(spc, rays):
                                axis_rays(o.shape[0], SEED)):
         traverse_checks(label, spc, ao, ad, False, errs)
         traverse_checks(label, spc, ao, ad, True, errs)
+    forced_overflow(spc, o, d)
     b_ms, b_by = traverse_bound(spc, o, d, False, out[3])
     t = dict(ms=time_ms(lambda: kst.traverse(octree, exsum, ph, o, d,
                                              C5_LEVEL), TIME_ITERS),
@@ -2627,6 +2845,11 @@ def raytrace_path(spc, rays):
     log(f'[config5] trace: {ms:.4f} ms per trace ({o.shape[0]} rays, level '
         f'{C5_LEVEL}, {ridx.shape[0]} hits; {TIME_ITERS} traces after a '
         'warm-up)')
+    syncs = host_syncs(trace)
+    activities = launches_per_call('[config5] trace', trace)
+    log(f'[config5] trace: {syncs} host sync(s), {activities} launches, '
+        'fills and copies a trace')
+    expect(syncs == 1, f'config 5 trace: {syncs} host syncs, expected 1')
     profile_calls('[config5] profile trace', trace, ms)
     return launches, ms, (ridx, pidx, depth)
 
@@ -2739,18 +2962,30 @@ def check_pack_ops_against_cpu(hits):
            'the primary rays on the card disagree with the CPU')
 
 
-def compare(label):
-    """``--compare LABEL``: the timings that set two checkouts side by side,
-    through the phase functions above, which call only what every revision
-    of the port since config 4 has: ``resource_usage``, the design counts,
-    ``forward_times``, ``backward_times`` and ``train_step_times`` on the
-    bench and config 2 sizes (the kernels also on the large-faces scene),
-    ``sampler_times`` at config 2's step, ``nn_fscore_times``,
-    the textured step, ``p2m_times`` on ``p2m_scenes``, ``nn_times`` on
-    config 3 and the sphere-centre scene, ``nn_big_times``, the config 3
-    step (``metrics_path``), ``deftet_times`` on config 4 at knum 30 and
-    300 and on the full-cover scene, and the config 4 step
-    (``deftet_path``). Prints one JSON line
+COMPARE_GROUPS = ('render', 'texture', 'metrics', 'deftet', 'spc')
+
+
+def compare(label, groups=COMPARE_GROUPS):
+    """``--compare LABEL [GROUP ...]``: the timings that set two checkouts
+    side by side, through the phase functions above, which call only what
+    every revision of the port since config 4 has. Groups (all by
+    default): ``render``: ``resource_usage`` of the render sources, the
+    design counts, ``forward_times``, ``backward_times`` and
+    ``train_step_times`` on the bench and config 2 sizes (the kernels also
+    on the large-faces scene); ``texture``: ``resource_usage`` of
+    ``grid_sample.cu``, ``grid_sample_counts`` at the step's cotangent, a
+    random one and random coordinates over the 256x256 and 64x64
+    textures, ``sampler_times``, ``grid_sample_backward`` at the step's
+    and the random cotangent, the textured step (with its device time
+    and the backward's kernels in it); ``metrics``: ``p2m_times`` on
+    ``p2m_scenes``, ``nn_times`` on config 3 and the sphere-centre scene,
+    ``nn_big_times``, ``nn_fscore_times``, the config 3 step
+    (``metrics_path``); ``deftet``: ``deftet_times`` on config 4 at knum
+    30 and 300 and on the full-cover scene, the config 4 step
+    (``deftet_path``); ``spc``: ``resource_usage`` of
+    ``spc_traverse.cu``, ``traverse`` and the config 5 trace
+    (``unbatched_raytrace``), each with its device time, device
+    activities, host syncs and device time a level. Prints one JSON line
     per measurement tagged ``label``. Copy this script into another
     checkout's root to time that checkout; compare two checkouts in turns
     (a, b, b, a) on one machine, since two machines may hold different
@@ -2761,40 +2996,85 @@ def compare(label):
     def report(name, values):
         log(json.dumps({'tree': label, 'name': name, **values}))
 
-    resource_usage()
-    for name, b, s in (*SIZES, LARGE):
-        sc = Scene(name, b, s, 'cuda',
-                   LARGE_SCALE if (name, b, s) == LARGE else 1.)
-        forward_counts(sc)
-        backward_counts(sc)
-        for key, t in forward_times(label, sc).items():
-            report(key, t)
-        for key, t in backward_times(label, sc).items():
-            report(key, t)
-        if (name, b, s) != LARGE:
-            report(f'train_step, {name}', train_step_times(label, sc))
-        del sc
-    tsc = TexturedScene(TEX_BATCH, TEX_SUBDIV, TEX_SIZE, H, W, 'cuda')
-    tex, ix, iy, _ = tsc.sampler_inputs()
-    report('grid_sample', sampler_times(f'[{label}]', tex, ix, iy))
-    report('textured_step', {'ms': textured_step_ms(tsc)})
-    for name, t in p2m_times(label, p2m_scenes()).items():
-        report(f'p2m_select, {name}', t)
-    p1, p2, _ = kt.utils.interop.metrics_scene(SEED, M3_N, M3_N, M3_FACES)
-    report('nearest_idx_pruned, config3', nn_times(label, p1, p2))
-    report('nearest_idx_pruned, sphere centre',
-           nn_times(label, *sphere_centre()))
-    report(f'nearest_idx_pruned, {NN_BIG} points', nn_big_times(label)[0])
-    report(f'nearest_idx, {FIT3_EVAL} x {FIT3_EVAL}', nn_fscore_times(label))
-    report('config3_step', {'ms': metrics_path()[1]})
-    d4 = kt.utils.interop.deftet_scene(seed=SEED, side=D4_SIDE,
-                                       num_faces=D4_FACES)
-    valid = torch.ones(d4[2].shape[:2], dtype=torch.bool, device='cuda')
-    report('deftet_topk, config4', deftet_times(label, (*d4[:4], valid)))
-    report('deftet_topk, config4 knum 300',
-           deftet_times(label, (*d4[:4], valid), D4_BIG_KNUM))
-    report('deftet_topk, full cover', deftet_times(label, full_cover(d4)))
-    report('config4_step', {'ms': deftet_path(d4)[1]})
+    if 'render' in groups:
+        resource_usage()
+        for name, b, s in (*SIZES, LARGE):
+            sc = Scene(name, b, s, 'cuda',
+                       LARGE_SCALE if (name, b, s) == LARGE else 1.)
+            forward_counts(sc)
+            backward_counts(sc)
+            for key, t in forward_times(label, sc).items():
+                report(key, t)
+            for key, t in backward_times(label, sc).items():
+                report(key, t)
+            if (name, b, s) != LARGE:
+                report(f'train_step, {name}', train_step_times(label, sc))
+            del sc
+    if 'texture' in groups:
+        resource_usage(('grid_sample',))
+        tsc = TexturedScene(TEX_BATCH, TEX_SUBDIV, TEX_SIZE, H, W, 'cuda')
+        tex, ix, iy, cot = tsc.sampler_inputs()
+        gen = torch.Generator('cuda').manual_seed(SEED)
+        rand_cot = torch.randn(cot.shape, device='cuda', generator=gen)
+        grid_sample_counts('[step cotangent]', tex, ix, iy, cot)
+        grid_sample_counts('[random cotangent]', tex, ix, iy, rand_cot)
+        B, P = ix.shape
+        for size, maps in ((TEX_SIZE, tex), (64, torch.rand(
+                B, tex.shape[1], 64, 64, device='cuda', generator=gen))):
+            rx = torch.rand(B, P, device='cuda', generator=gen) * (size - 1)
+            ry = torch.rand(B, P, device='cuda', generator=gen) * (size - 1)
+            grid_sample_counts(f'[{size}x{size} random coords]', maps, rx,
+                               ry, rand_cot)
+        report('grid_sample', sampler_times(f'[{label}]', tex, ix, iy))
+        report('grid_sample_backward, step cotangent',
+               sampler_backward_times(label, tex, ix, iy, cot,
+                                      'step cotangent'))
+        report('grid_sample_backward, random cotangent',
+               sampler_backward_times(label, tex, ix, iy, rand_cot,
+                                      'random cotangent'))
+        ms = textured_step_ms(tsc)
+        prof = profile_calls(f'[{label}] profile textured step',
+                             lambda: tsc.train(1), ms, watch=GS_BWD_KERNELS)
+        in_step = (sum(v for k, v in prof['kernels'].items()
+                       if any(w in k for w in GS_BWD_KERNELS))
+                   if prof else None)
+        report('textured_step', dict(
+            ms=ms, device_ms=device_ms(f'[{label}] textured step',
+                                       lambda: tsc.train(1), iters=5),
+            grid_sample_backward_in_step_ms=in_step))
+        del tsc
+    if 'metrics' in groups:
+        for name, t in p2m_times(label, p2m_scenes()).items():
+            report(f'p2m_select, {name}', t)
+        p1, p2, _ = kt.utils.interop.metrics_scene(SEED, M3_N, M3_N, M3_FACES)
+        report('nearest_idx_pruned, config3', nn_times(label, p1, p2))
+        report('nearest_idx_pruned, sphere centre',
+               nn_times(label, *sphere_centre()))
+        report(f'nearest_idx_pruned, {NN_BIG} points',
+               nn_big_times(label)[0])
+        report(f'nearest_idx, {FIT3_EVAL} x {FIT3_EVAL}',
+               nn_fscore_times(label))
+        report('config3_step', {'ms': metrics_path()[1]})
+    if 'deftet' in groups:
+        d4 = kt.utils.interop.deftet_scene(seed=SEED, side=D4_SIDE,
+                                           num_faces=D4_FACES)
+        valid = torch.ones(d4[2].shape[:2], dtype=torch.bool, device='cuda')
+        report('deftet_topk, config4', deftet_times(label, (*d4[:4], valid)))
+        report('deftet_topk, config4 knum 300',
+               deftet_times(label, (*d4[:4], valid), D4_BIG_KNUM))
+        report('deftet_topk, full cover', deftet_times(label, full_cover(d4)))
+        report('config4_step', {'ms': deftet_path(d4)[1]})
+    if 'spc' in groups:
+        resource_usage(('spc_traverse',))
+        octree, ph, pyr, exsum = kt.utils.interop.sphere_shell_spc(
+            level=C5_LEVEL, n=C5_N, seed=SEED, radius=C5_RADIUS)
+        o, d = kt.render.spc.generate_primary_rays(C5_RES, C5_RES, *C5_CAM)
+        report('traverse, config5', trace_times(
+            label, 'traverse, config5', lambda: kst.traverse(
+                octree, exsum, ph, o, d, C5_LEVEL)))
+        report('config5 trace', trace_times(
+            label, 'config5 trace', lambda: kt.render.spc.unbatched_raytrace(
+                octree, ph, pyr, exsum, o, d, C5_LEVEL)))
     log(card)
     return 0
 
@@ -2804,7 +3084,8 @@ def main():
         print('chip_smoke: no CUDA device visible', file=sys.stderr)
         return 2
     if sys.argv[1:2] == ['--compare']:
-        return compare(sys.argv[2] if len(sys.argv) > 2 else 'this tree')
+        return compare(sys.argv[2] if len(sys.argv) > 2 else 'this tree',
+                       tuple(sys.argv[3:]) or COMPARE_GROUPS)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2923,7 +3204,8 @@ def main():
                                               'launches_per_call',
                                               'fscore_ms',
                                               'fscore_device_ms',
-                                              'fscore_bound_ms')
+                                              'fscore_bound_ms',
+                                              'fscore_library_ms')
                             if k in t}))
     expect(all(row['launches'] > 0 for row in rows),
            'a kernel of the kernels line was launched on no path')

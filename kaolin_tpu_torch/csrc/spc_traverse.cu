@@ -4,28 +4,50 @@
 // Replaces the TPU kernels kaolin_tpu/kernels/spc_traverse.py
 // traverse_banded_cc (its _cc_level_call) and traverse_banded (its
 // make_level_call): both meet one contract, and this traversal meets it.
-// The design is the level-synchronous breadth-first one of the reference
-// CUDA (kaolin/csrc/render/spc/raytrace_cuda.cu). The frontier is a list
-// of (ray, node) nuggets; per level:
-//   1. spc_decide_kernel, one thread per nugget: reads the node's byte,
-//      its exsum and its coords (from the point hierarchy) and the ray,
-//      forms the ray origin's octant code (raytrace.py:396-398), tests the
-//      node's existing children in VOXEL_ORDER rank with the slab test
-//      (raytrace.py _ray_aabb), and writes a hit mask (bits 0-7 by rank,
-//      the code in bits 8-10) and the number of hits;
-//   2. an exclusive scan of the counts, written here: a scan of each
-//      block of SCAN_BLOCK counts, a scan of the block sums, then an add;
-//      its last entry is the level's total, which the host reads once per
-//      level to size the next buffers (as the reference CUDA does);
-//   3. spc_emit_kernel: writes each hit at its offset in rank order, its
-//      ray and child id exsum[node] + popcount(bits & ((2 << octant) - 1))
-//      and, at the last level, its entry (and exit) depth.
-// Parents stay ray-major and near to far, so the output takes the XLA
-// path's order (kaolin_tpu/render/spc/raytrace.py
-// unbatched_raytrace_fixed) with no final sort. The TPU kernels' banded
-// windows, one-hot matmul gathers and per-level sorts exist because the
-// TPU has no fast gather and no dynamic buffer sizes; neither limit holds
-// here.
+// The TPU kernels' banded windows, one-hot matmul gathers and per-level
+// sorts exist because the TPU has no fast gather; they also run on
+// buffers of fixed size, planned ahead (plan_raytrace,
+// schedule_from_counts). The H100 gathers, so the traversal is the
+// level-synchronous breadth-first one of the reference CUDA
+// (kaolin/csrc/render/spc/raytrace_cuda.cu): the frontier is a list of
+// (ray, node) nuggets, and each level tests every nugget's existing
+// children and compacts the hits, in (nugget, near-to-far rank) order,
+// into the next level's frontier.
+//
+// What bounds it on an H100: latency and the host, not bytes. Per nugget
+// and level it reads a ray (24 bytes), a node byte, its exsum and coords
+// (11 bytes) and writes 8 bytes a hit; about 120 float operations a
+// tested child: at config 5 (65,536 rays, level 8, 65,536-101,496 nuggets
+// a level) the card's bound is 2 us a trace. A design that sizes each
+// level from its total, read on the host (the reference's, and this
+// port's first), pays a host sync and about 8 launches and fills a level:
+// a 1 ms trace for 0.15 ms of card time.
+//
+// This design runs each level as one kernel, spc_level_kernel, with no
+// host read between levels. A persistent grid takes tiles of TILE
+// nuggets in ticket order; a block tests its nuggets' children (the
+// origin's octant code picks the rank order, raytrace.py:396-398; the
+// slab test as raytrace.py _ray_aabb), scans its counts in shared memory,
+// takes its output offset by a decoupled look-back over the tiles in
+// nugget order (lookback.cuh), and writes its hits there at once: each
+// hit's ray, child id exsum[node] + popcount(bits & ((2 << octant) - 1))
+// and, at the last level, its entry (and exit) depth. So the output keeps
+// the XLA path's order (ray-major, near to far in VOXEL_ORDER) with no
+// sort. The frontier's size stays on the card: the kernel reads it from
+// the count the previous level's last tile wrote, and blocks past it
+// stop. The last tile writes the level's true total, hits past the
+// capacity included.
+//
+// The buffers come from the shapes. Level l's frontier holds at most
+// C_l = min(8 C_{l-1}, R (3 * 2^l - 2), budget) nuggets (C_0 = R rays; a
+// ray crosses at most 3 * 2^k - 2 cells of a 2^k grid), and the last
+// level at most cap rows where the caller gives one; hits past a
+// capacity are not written. After the last level the host reads the
+// totals once: a level whose total passed its capacity (only the budget
+// can bind) makes the wrapper run the trace again with each level sized
+// exactly from its total (kernels/spc_traverse.py), with the same kernel.
+// At the last level with a cap, the blocks write -1 / 0 past the count
+// once the last tile has published it; nothing else is filled.
 //
 // Hit rules, as the XLA path: before the last level a child counts when
 // its entry is not 0 (an origin inside the cell counts); at the last level
@@ -34,24 +56,17 @@
 // XLA path's operations in their order (signbit for the sign, 1/d in IEEE)
 // and is compiled with --fmad=false, so that no product is fused into a
 // sum.
-//
-// What bounds it on an H100: bytes and latency. Per nugget and level it
-// reads a ray (24 bytes), a node byte, its exsum and coords (11 bytes) and
-// writes 8 bytes per child hit; about 120 float operations per tested
-// child. The host read per level and the ~4 launches per level bound a
-// trace at small frontiers.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "lookback.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int SCAN_THREADS = 256;
-constexpr int SCAN_ITEMS = 4;
-constexpr int SCAN_BLOCK = SCAN_THREADS * SCAN_ITEMS;
-constexpr int SUM_THREADS = 1024;
+// nuggets a tile, one a thread
+constexpr int TILE = 256;
 
 // VOXEL_ORDER[code][rank]: octants sorted by (popcount(o ^ code), o)
 // (raytrace_cuda.cu:48-57)
@@ -154,226 +169,217 @@ __device__ __forceinline__ bool last_hit(float entry, const Ray& ray,
   return ex > 0.f;
 }
 
-__global__ void __launch_bounds__(THREADS)
-spc_decide_kernel(const unsigned char* __restrict__ octree,
-                  const short* __restrict__ ph,
-                  const float* __restrict__ origin,
-                  const float* __restrict__ dir,
-                  const int* __restrict__ ridx, const int* __restrict__ pidx,
-                  int n, int l, int last, int with_exit, int root,
-                  int* __restrict__ counts,
-                  unsigned short* __restrict__ hits) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  const Ray ray = load_ray(origin, dir, ridx[i]);
-  if (root) {
-    const bool hit = last_hit(ray_aabb(ray, 1.f, 0.f, 0.f, 0.f, 1.f), ray,
-                              nullptr, 0, with_exit);
-    counts[i] = hit ? 1 : 0;
-    hits[i] = hit ? 1 : 0;
-    return;
-  }
-  const int node = pidx[i];
-  const unsigned bits = octree[node];
-  const Cell c = load_cell(ph, node, l, ray);
-  unsigned m = 0;
-  int cnt = 0;
-  for (int rank = 0; rank < 8; ++rank) {
-    const int oct = c_order[c.code * 8 + rank];
-    if (!((bits >> oct) & 1u)) continue;
-    const float e = child_aabb(ray, c, oct, 1.f);
-    const bool hit = last ? last_hit(e, ray, &c, oct, with_exit) : e != 0.f;
-    if (hit) {
-      m |= 1u << rank;
-      ++cnt;
-    }
-  }
-  counts[i] = cnt;
-  hits[i] = (unsigned short)(m | ((unsigned)c.code << 8));
-}
-
-__global__ void __launch_bounds__(THREADS)
-spc_emit_kernel(const unsigned char* __restrict__ octree,
-                const int* __restrict__ exsum, const short* __restrict__ ph,
-                const float* __restrict__ origin,
-                const float* __restrict__ dir, const int* __restrict__ ridx,
-                const int* __restrict__ pidx, int n, int l, int last,
-                int with_exit, int root,
-                const unsigned short* __restrict__ hits,
-                const int* __restrict__ offsets, int* __restrict__ out_ridx,
-                int* __restrict__ out_pidx, float* __restrict__ out_depth,
-                int cap) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  const unsigned h = hits[i];
-  const unsigned m = h & 0xffu;
-  int pos = offsets[i];
-  if (!m || pos >= cap) return;
-  const int r = ridx[i];
+// One level over the frontier (in_r, in_p): n nuggets, n_host where the
+// caller knows it, else min(*n_dev, cap_in). Writes the hits at most
+// cap_out of them into (out_r, out_p) and, at the last level, out_depth
+// (cap_out, 1 or 2); *total gets the level's true total. pad: at the last
+// level, rows past min(total, cap_out) get -1 / 0. root: the target level
+// is 0, the root cell alone. in_r null: the frontier is the rays 0 .. n-1
+// at the root node (level 0).
+__global__ void __launch_bounds__(TILE)
+spc_level_kernel(const unsigned char* __restrict__ octree,
+                 const int* __restrict__ exsum, const short* __restrict__ ph,
+                 const float* __restrict__ origin,
+                 const float* __restrict__ dir,
+                 const int* __restrict__ in_r, const int* __restrict__ in_p,
+                 const int* __restrict__ n_dev, int n_host, int cap_in,
+                 int l, int last, int with_exit, int root,
+                 int* __restrict__ total, int* __restrict__ ticket,
+                 unsigned long long* __restrict__ status,
+                 int* __restrict__ out_r, int* __restrict__ out_p,
+                 float* __restrict__ out_depth, int cap_out, int pad) {
+  __shared__ int s_tile;
+  __shared__ int s_warp[32];
+  __shared__ int s_base;
+  const int n = n_dev ? min(*n_dev, cap_in) : n_host;
+  const int ntiles = (n + TILE - 1) / TILE;
   const int ncols = with_exit ? 2 : 1;
-  if (root) {
-    const Ray ray = load_ray(origin, dir, r);
-    out_ridx[pos] = r;
-    out_pidx[pos] = 0;
-    out_depth[(size_t)pos * ncols] = ray_aabb(ray, 1.f, 0.f, 0.f, 0.f, 1.f);
-    if (with_exit)
-      out_depth[(size_t)pos * ncols + 1] =
-          ray_aabb(ray, -1.f, 0.f, 0.f, 0.f, 1.f);
-    return;
-  }
-  const int node = pidx[i];
-  const unsigned bits = octree[node];
-  const int base = exsum[node];
-  const int code = (int)(h >> 8);
-  Ray ray;
-  Cell c;
-  if (last) {
-    ray = load_ray(origin, dir, r);
-    c = load_cell(ph, node, l, ray);
-  }
-  for (int rank = 0; rank < 8 && pos < cap; ++rank) {
-    if (!((m >> rank) & 1u)) continue;
-    const int oct = c_order[code * 8 + rank];
-    out_ridx[pos] = r;
-    out_pidx[pos] = base + __popc(bits & ((2u << oct) - 1u));
-    if (last) {
-      out_depth[(size_t)pos * ncols] = child_aabb(ray, c, oct, 1.f);
-      if (with_exit)
-        out_depth[(size_t)pos * ncols + 1] = child_aabb(ray, c, oct, -1.f);
+  while (true) {
+    const int tile = lookback::take_ticket(ticket, &s_tile);
+    if (tile >= ntiles) break;
+    const int i = tile * TILE + threadIdx.x;
+    int r = 0, node = 0, cnt = 0, base = 0;
+    unsigned m = 0, bits = 0;
+    Ray ray;
+    Cell c;
+    if (i < n) {
+      r = in_r ? in_r[i] : i;
+      ray = load_ray(origin, dir, r);
+      if (root) {
+        m = last_hit(ray_aabb(ray, 1.f, 0.f, 0.f, 0.f, 1.f), ray, nullptr,
+                     0, with_exit) ? 1u : 0u;
+        cnt = (int)m;
+      } else {
+        node = in_p ? in_p[i] : 0;
+        bits = octree[node];
+        base = exsum[node];   // loaded now, used after the look-back
+        c = load_cell(ph, node, l, ray);
+        for (int rank = 0; rank < 8; ++rank) {
+          const int oct = c_order[c.code * 8 + rank];
+          if (!((bits >> oct) & 1u)) continue;
+          const float e = child_aabb(ray, c, oct, 1.f);
+          if (last ? last_hit(e, ray, &c, oct, with_exit) : e != 0.f) {
+            m |= 1u << rank;
+            ++cnt;
+          }
+        }
+      }
     }
-    ++pos;
-  }
-}
-
-// Exclusive scan of v over the block (blockDim.x a multiple of 32, at
-// most 1024); *total gets the block's sum. s_warp holds 32 ints.
-__device__ __forceinline__ int block_exclusive_scan(int v, int* s_warp,
-                                                    int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  int x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  __syncthreads();   // s_warp may still be read from a previous call
-  if (lane == 31) s_warp[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < nwarps ? s_warp[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
+    int agg;
+    const int ex = lookback::block_exclusive_scan(cnt, s_warp, &agg);
+    if (threadIdx.x < 32) {
+      const int before = (int)lookback::exclusive_prefix(
+          status, tile, (unsigned long long)agg);
+      if (threadIdx.x == 0) {
+        s_base = before;
+        if (tile == ntiles - 1) *total = before + agg;
+      }
     }
-    if (lane < nwarps) s_warp[lane] = w;
+    __syncthreads();
+    int pos = s_base + ex;
+    if (m && pos < cap_out) {
+      if (root) {
+        out_r[pos] = r;
+        out_p[pos] = 0;
+        out_depth[(size_t)pos * ncols] =
+            ray_aabb(ray, 1.f, 0.f, 0.f, 0.f, 1.f);
+        if (with_exit)
+          out_depth[(size_t)pos * ncols + 1] =
+              ray_aabb(ray, -1.f, 0.f, 0.f, 0.f, 1.f);
+      } else {
+        for (int rank = 0; rank < 8 && pos < cap_out; ++rank) {
+          if (!((m >> rank) & 1u)) continue;
+          const int oct = c_order[c.code * 8 + rank];
+          out_r[pos] = r;
+          out_p[pos] = base + __popc(bits & ((2u << oct) - 1u));
+          if (last) {
+            out_depth[(size_t)pos * ncols] = child_aabb(ray, c, oct, 1.f);
+            if (with_exit)
+              out_depth[(size_t)pos * ncols + 1] =
+                  child_aabb(ray, c, oct, -1.f);
+          }
+          ++pos;
+        }
+      }
+    }
+    __syncthreads();   // s_tile and s_base are written again
   }
+  if (!pad) return;
+  // past the count: -1 / 0, once the last tile has published the total
+  if (threadIdx.x == 0)
+    s_base = ntiles ? (int)lookback::wait_prefix(status, ntiles - 1) : 0;
   __syncthreads();
-  *total = s_warp[nwarps - 1];
-  return (warp > 0 ? s_warp[warp - 1] : 0) + x - v;
-}
-
-// out[e] = sum of in[0 .. e) within this block of SCAN_BLOCK entries, for
-// e in [0, n] (in[n] reads as 0); sums[block] = the block's total.
-__global__ void __launch_bounds__(SCAN_THREADS)
-scan_blocks_kernel(const int* __restrict__ in, int* __restrict__ out, int n,
-                   int* __restrict__ sums) {
-  __shared__ int s_warp[32];
-  const int base = blockIdx.x * SCAN_BLOCK + threadIdx.x * SCAN_ITEMS;
-  int v[SCAN_ITEMS];
-  int s = 0;
-  for (int j = 0; j < SCAN_ITEMS; ++j) {
-    const int e = base + j;
-    v[j] = e < n ? in[e] : 0;
-    s += v[j];
-  }
-  int total;
-  int ex = block_exclusive_scan(s, s_warp, &total);
-  for (int j = 0; j < SCAN_ITEMS; ++j) {
-    const int e = base + j;
-    if (e <= n) out[e] = ex;
-    ex += v[j];
-  }
-  if (threadIdx.x == 0) sums[blockIdx.x] = total;
-}
-
-// Exclusive scan of the nb block sums in place, by one block.
-__global__ void __launch_bounds__(SUM_THREADS)
-scan_sums_kernel(int* __restrict__ sums, int nb) {
-  __shared__ int s_warp[32];
-  int carry = 0;
-  for (int base = 0; base < nb; base += SUM_THREADS) {
-    const int e = base + threadIdx.x;
-    const int v = e < nb ? sums[e] : 0;
-    int total;
-    const int ex = block_exclusive_scan(v, s_warp, &total);
-    if (e < nb) sums[e] = carry + ex;
-    carry += total;
+  const size_t stride = (size_t)gridDim.x * TILE;
+  for (size_t k = min(s_base, cap_out) + (size_t)blockIdx.x * TILE
+                  + threadIdx.x;
+       k < (size_t)cap_out; k += stride) {
+    out_r[k] = -1;
+    out_p[k] = -1;
+    for (int col = 0; col < ncols; ++col) out_depth[k * ncols + col] = 0.f;
   }
 }
 
-__global__ void __launch_bounds__(SCAN_THREADS)
-scan_add_kernel(int* __restrict__ out, int n, const int* __restrict__ sums) {
-  const int add = sums[blockIdx.x];
-  const int base = blockIdx.x * SCAN_BLOCK + threadIdx.x * SCAN_ITEMS;
-  for (int j = 0; j < SCAN_ITEMS; ++j) {
-    const int e = base + j;
-    if (e <= n) out[e] += add;
+// Launches one level (see spc_level_kernel) on a persistent grid of as
+// many blocks as fit on the card at once. state: the look-back's, zeroed:
+// a ticket (8 bytes), then a status word a tile of TILE nuggets of cap_in.
+cudaError_t launch_level(const unsigned char* octree, const int* exsum,
+                         const short* ph, const float* origin,
+                         const float* dir, const int* in_r, const int* in_p,
+                         const int* n_dev, int n_host, int cap_in, int l,
+                         int last, int with_exit, int root, int* total,
+                         void* state, int* out_r, int* out_p,
+                         float* out_depth, int cap_out, int pad, int device,
+                         cudaStream_t stream) {
+  static int max_blocks[64];
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (max_blocks[device] == 0) {
+    int sms = 0, per_sm = 0;
+    cudaError_t err = cudaDeviceGetAttribute(
+        &sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, spc_level_kernel, TILE, 0);
+    if (err != cudaSuccess) return err;
+    max_blocks[device] = max(1, sms * per_sm);
   }
+  const int tiles = (cap_in + TILE - 1) / TILE;
+  const int blocks = max(1, min(tiles, max_blocks[device]));
+  spc_level_kernel<<<blocks, TILE, 0, stream>>>(
+      octree, exsum, ph, origin, dir, in_r, in_p, n_dev, n_host, cap_in, l,
+      last, with_exit, root, total, (int*)state,
+      (unsigned long long*)((char*)state + 8), out_r, out_p, out_depth,
+      cap_out, pad);
+  return cudaGetLastError();
+}
+
+// int32 words of one level's look-back state over cap_in nuggets
+size_t state_ints(int cap_in) {
+  return 2 + 2 * (size_t)((cap_in + TILE - 1) / TILE);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Decides one level over the n nuggets (ridx, pidx) and scans the counts:
-// counts (n,) and hits (n,) uint16 per nugget, offsets (n + 1,) with
-// offsets[n] the level's total; sums holds (n + SCAN_BLOCK) / SCAN_BLOCK
-// ints of scratch. root: the target level is 0 (the root cell alone).
-int spc_traverse_decide(const unsigned char* octree, const short* ph,
-                        const float* origin, const float* dir,
-                        const int* ridx, const int* pidx, int n, int l,
-                        int last, int with_exit, int root, int* counts,
-                        unsigned short* hits, int* offsets, int* sums,
-                        int device, void* stream) {
+// One level (see spc_level_kernel) with the caller's buffers; state:
+// state_words int32 words, zeroed, at least 2 + 2 * ceil(cap_in / TILE)
+// (cudaErrorInvalidValue, and no launch, where fewer).
+int spc_traverse_level(const unsigned char* octree, const int* exsum,
+                       const short* ph, const float* origin,
+                       const float* dir, const int* in_r, const int* in_p,
+                       const int* n_dev, int n_host, int cap_in, int l,
+                       int last, int with_exit, int root, int* total,
+                       void* state, int state_words, int* out_r,
+                       int* out_p, float* out_depth, int cap_out, int pad,
+                       int device, void* stream) {
+  if (state_ints(cap_in) > (size_t)state_words)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (n > 0) {
-    spc_decide_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0, s>>>(
-        octree, ph, origin, dir, ridx, pidx, n, l, last, with_exit, root,
-        counts, hits);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int nb = n / SCAN_BLOCK + 1;   // blocks over the n + 1 entries
-  scan_blocks_kernel<<<nb, SCAN_THREADS, 0, s>>>(counts, offsets, n, sums);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || nb == 1) return (int)err;
-  scan_sums_kernel<<<1, SUM_THREADS, 0, s>>>(sums, nb);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  scan_add_kernel<<<nb, SCAN_THREADS, 0, s>>>(offsets, n, sums);
-  return (int)cudaGetLastError();
+  return (int)launch_level(octree, exsum, ph, origin, dir, in_r, in_p,
+                           n_dev, n_host, cap_in, l, last, with_exit, root,
+                           total, state, out_r, out_p, out_depth, cap_out,
+                           pad, device, (cudaStream_t)stream);
 }
 
-// Writes each hit of the n nuggets at its offset, in rank order: out_ridx
-// and out_pidx (cap,), and at the last level out_depth (cap, 1 or 2);
-// hits past cap are not written.
-int spc_traverse_emit(const unsigned char* octree, const int* exsum,
-                      const short* ph, const float* origin, const float* dir,
-                      const int* ridx, const int* pidx, int n, int l,
-                      int last, int with_exit, int root,
-                      const unsigned short* hits, const int* offsets,
-                      int* out_ridx, int* out_pidx, float* out_depth,
-                      int cap, int device, void* stream) {
+// A whole trace of nlev levels in one call: caps (host, nlev + 1 ints) the
+// frontiers' rows, caps[0] the rays. meta (meta_words int32 words):
+// `head` words, the levels' totals at 1 .. nlev, then each level's state
+// (state_ints(caps[l]) words); zeroed here, cudaErrorInvalidValue and no
+// launch where it is shorter. front: two frontiers of `inner` nuggets, each a
+// row of ray ids then a row of node ids; out: the last level's ray ids,
+// then its point ids (caps[nlev] each); depth (caps[nlev], 1 or 2). pad:
+// -1 / 0 past the count at the last level. One memset and nlev launches.
+int spc_traverse_levels(const unsigned char* octree, const int* exsum,
+                        const short* ph, const float* origin,
+                        const float* dir, int nlev, int with_exit, int root,
+                        const int* caps, int* meta, int meta_words,
+                        int head, int* front, int inner, int* out,
+                        float* depth, int pad, int device, void* stream) {
+  size_t words = head;
+  for (int l = 0; l < nlev; ++l) words += state_ints(caps[l]);
+  if (words > (size_t)meta_words) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (n == 0 || cap == 0) return (int)cudaGetLastError();
-  spc_emit_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
-                    (cudaStream_t)stream>>>(
-      octree, exsum, ph, origin, dir, ridx, pidx, n, l, last, with_exit,
-      root, hits, offsets, out_ridx, out_pidx, out_depth, cap);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  err = cudaMemsetAsync(meta, 0, words * 4, s);
+  if (err != cudaSuccess) return (int)err;
+  size_t off = head;
+  for (int l = 0; l < nlev; ++l) {
+    const bool last = l == nlev - 1;
+    int* src = l == 0 ? nullptr : front + (size_t)((l - 1) % 2) * 2 * inner;
+    int* dst = last ? out : front + (size_t)(l % 2) * 2 * inner;
+    err = launch_level(octree, exsum, ph, origin, dir, src,
+                       src ? src + inner : nullptr,
+                       l == 0 ? nullptr : meta + l, caps[0], caps[l], l,
+                       last, with_exit, root, meta + l + 1, meta + off, dst,
+                       last ? out + caps[nlev] : dst + inner,
+                       last ? depth : nullptr, caps[l + 1], last && pad,
+                       device, s);
+    if (err != cudaSuccess) return (int)err;
+    off += state_ints(caps[l]);
+  }
+  return 0;
 }
 
 }  // extern "C"

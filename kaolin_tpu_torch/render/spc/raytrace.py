@@ -6,10 +6,11 @@
 The trace runs in :func:`kaolin_tpu_torch.kernels.spc_traverse.traverse`:
 the CUDA traversal on CUDA tensors, its plain version on CPU tensors. Both
 give the hits in the reference's order (ray-major, near to far in
-``VOXEL_ORDER``), with the true count; each level's buffers are sized
-from its total, so the JAX package's per-level capacities
-(``cap_schedule``) and table ranges (``level_offsets``) are accepted and
-not needed. The trace is not differentiable, as in JAX.
+``VOXEL_ORDER``), with the true count. The card sizes each level's
+buffers from the shapes and reads the host once a trace (sizing the
+levels exactly where a budget binds), so the JAX package's per-level
+capacities (``cap_schedule``) and table ranges (``level_offsets``) are
+accepted and not needed. The trace is not differentiable, as in JAX.
 
 The pack ops (segmented scans and reductions over runs of equal ray ids)
 are plain tensor operations, differentiable by autograd.
@@ -86,8 +87,8 @@ def unbatched_raytrace_fixed(octree, point_hierarchy, exsum, origin,
         cap (int): rows of the outputs, at least ``num_rays``.
         with_exit: also compute exit depths.
         cap_schedule, level_offsets, banded_raw_rows: accepted for
-            ``kaolin_tpu``'s signature; each level's buffers are sized from
-            its total.
+            ``kaolin_tpu``'s signature; the traversal sizes each level's
+            buffers itself, and no hit is lost before ``cap``.
         return_level_counts: also return the hits at each level.
         ray_fn: optional ``ray_fn(ridx) -> (origin rows, direction rows)``
             that reproduces the arrays bit for bit (e.g.

@@ -14,8 +14,10 @@ another order than the plain versions: each gradient entry agrees to 1e-4
 of itself plus 1e-4 of the median nonzero entry, and two launches give the
 same bits. The soft mask's cut agrees exactly. The grid-sample kernels
 repeat the plain versions' operations too: the samples and the coordinate
-gradients agree exactly; the texture gradient sums with atomics in no fixed
-order and agrees entry by entry as the other gradients do. The DefTet
+gradients agree exactly; the texture gradient sums in a fixed order of its
+own, agrees entry by entry as the other gradients do, and is bit for bit
+the order written out in ``texture_grad_tiled_plain``, its lists those of
+``tile_lists_plain``. The DefTet
 selection and the SPC traversal score and test as their plain versions do,
 so face ids, ray and point ids, counts and depths agree exactly.
 """
@@ -1106,3 +1108,138 @@ def test_raytrace_on_card_matches_cpu(cuda):
         assert torch.equal(a.cpu(), b)
     for a, b in zip(out['cuda'][4:], out['cpu'][4:]):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6)
+
+
+def _backward_case(device, C, H, W, B, P, kind, seed):
+    """Sampler inputs of the backward's binning tests: random coordinates
+    with a third of the cotangents zero ('random'), every point at texel 0
+    ('hot'), or coordinates on the tile edges ('edges')."""
+    g = torch.Generator('cpu').manual_seed(seed)
+    maps = torch.rand(B, C, H, W, generator=g)
+    ix = torch.rand(B, P, generator=g) * (W - 1)
+    iy = torch.rand(B, P, generator=g) * (H - 1)
+    cot = torch.randn(B, P, C, generator=g)
+    if kind == 'hot':
+        ix.zero_()
+        iy.zero_()
+    elif kind == 'edges':
+        ix = (torch.randint(0, max(W // 32, 1) + 1, (B, P), generator=g)
+              * 32. - 1. + torch.rand(B, P, generator=g)).clamp(0, W - 1)
+        iy = (torch.randint(0, max(H // 32, 1) + 1, (B, P), generator=g)
+              * 32. - 1. + torch.rand(B, P, generator=g)).clamp(0, H - 1)
+    else:
+        cot[:, ::3] = 0.
+    return [t.to(device) for t in (maps, ix, iy, cot)]
+
+
+@pytest.mark.parametrize('case', [
+    (3, 64, 64, 2, 700, 'random'), (3, 5, 7, 2, 300, 'random'),
+    (1, 1, 1, 2, 200, 'random'), (5, 70, 45, 2, 600, 'edges'),
+    (3, 64, 64, 2, 400, 'hot'), (2, 40, 33, 1, 20000, 'hot')])
+@pytest.mark.parametrize('mode', ['bilinear', 'nearest'])
+def test_grid_sample_backward_lists_and_order(cuda, case, mode):
+    """The backward's lists equal ``tile_lists_plain``'s and its texture
+    gradient ``texture_grad_tiled_plain``'s bits (20,000 points on one
+    texel: two chunks of a tile's list, added in chunk order), the same
+    bits at every launch and with the forward's interleaved copy; dix and
+    diy the plain version's."""
+    C, H, W, B, P, kind = case
+    maps, ix, iy, cot = _backward_case(cuda, C, H, W, B, P, kind, 11)
+    dmaps, dix, diy, (lst, starts, counts) = ktex._backward(
+        maps, ix, iy, cot, mode, lists=True)
+    ref = ktex.tile_lists_plain(ix.cpu(), iy.cpu(), cot.cpu(), H, W, mode)
+    for got, want in zip((lst, starts, counts), ref):
+        assert torch.equal(got.cpu().long(), want)
+    model = ktex.texture_grad_tiled_plain(ix.cpu(), iy.cpu(), cot.cpu(), H,
+                                          W, mode)
+    assert torch.equal(dmaps.cpu().view(torch.int32),
+                       model.view(torch.int32))
+    inter = ktex._grid_sample(maps, ix, iy, mode)[1]
+    again = ktex.grid_sample_backward(maps, ix, iy, cot, mode, inter)
+    assert torch.equal(dmaps.view(torch.int32), again[0].view(torch.int32))
+    _, rix, riy = ktex.grid_sample_backward_plain(maps, ix, iy, cot, mode)
+    assert torch.equal(dix, rix) and torch.equal(diy, riy)
+    assert torch.equal(dix, again[1]) and torch.equal(diy, again[2])
+    assert ktex._backward_layout(B, C, H, W, P, mode == 'nearest',
+                                 False)[5] == ktex.partial_slots(
+                                     B, P, H, W, mode)
+
+
+def test_grid_sample_backward_no_points(cuda):
+    """No points: a zero texture gradient, written by the kernels."""
+    maps = torch.rand(2, 3, 40, 50, device=cuda)
+    empty = torch.zeros(2, 0, device=cuda)
+    dmaps, dix, diy = ktex.grid_sample_backward(
+        maps, empty, empty, torch.zeros(2, 0, 3, device=cuda))
+    assert dmaps.shape == maps.shape and not dmaps.any()
+    assert dix.shape == (2, 0) and diy.shape == (2, 0)
+
+
+@pytest.mark.parametrize('C', [3, 0])
+@pytest.mark.parametrize('mode', ['bilinear', 'nearest'])
+def test_grid_sample_backward_zero_cotangent(cuda, mode, C):
+    """No live point (a zero cotangent, or no channel) while the layout
+    has slots of partial tiles (B * P >= 512), on a scratch that the
+    caching allocator hands back holding 0x7f bytes (as an int, an index
+    far past every buffer): a zero texture gradient, dix and diy the plain
+    version's, and no fault."""
+    B, P, H, W = 2, 4096, 70, 45
+    g = torch.Generator('cpu').manual_seed(5)
+    maps = torch.rand(B, C, H, W, generator=g).to(cuda)
+    ix = (torch.rand(B, P, generator=g) * (W - 1)).to(cuda)
+    iy = (torch.rand(B, P, generator=g) * (H - 1)).to(cuda)
+    cot = torch.zeros(B, P, C, device=cuda)
+    layout = ktex._backward_layout(B, C, H, W, P, mode == 'nearest', False)
+    assert layout[5] == ktex.partial_slots(B, P, H, W, mode) > 0
+    for _ in range(2):
+        junk = torch.full((layout[0],), 0x7f, dtype=torch.uint8, device=cuda)
+        del junk
+        dmaps, dix, diy = ktex.grid_sample_backward(maps, ix, iy, cot, mode)
+        torch.cuda.synchronize()
+        _, rix, riy = ktex.grid_sample_backward_plain(maps, ix, iy, cot,
+                                                      mode)
+        assert dmaps.shape == maps.shape and not dmaps.any()
+        assert torch.equal(dix, rix) and torch.equal(diy, riy)
+
+
+def _sync_count(fn):
+    """The synchronizing operations of a call of ``fn`` that
+    ``set_sync_debug_mode`` reports."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    return sum('called a synchronizing' in str(w.message) for w in caught)
+
+
+@pytest.mark.parametrize('level', [0, 1, 4, 6])
+def test_spc_traverse_budget_and_syncs(cuda, level, monkeypatch):
+    """A budget below the levels' totals: the trace is sized exactly and
+    run again (``traverse.resized``), with the plain version's outputs,
+    with and without a cap; with the default budget a trace reads the host
+    once."""
+    octree, ph, _, exsum = kt.utils.interop.sphere_shell_spc(
+        level=6, n=20000, seed=3, radius=0.6, device=cuda)
+    o, d = kt.render.spc.generate_primary_rays(
+        48, 48, (0.3, 0.2, 2.5), (0., 0., 0.), (0., 1., 0.), 0.9,
+        device=cuda)
+    for cap in (None, 100, 100000):
+        ref = kst.traverse_plain(octree, exsum, ph, o, d, level, True, cap)
+        n = kst.traverse.resized
+        with monkeypatch.context() as m:
+            m.setattr(kst, 'BUDGET_PER_RAY', 0)
+            m.setattr(kst, 'BUDGET_MIN', 64)
+            out = kst.traverse(octree, exsum, ph, o, d, level, True, cap)
+        over = any(c > 64 for c in ref[4][:-1]) or (
+            cap is None and ref[4][-1] > 64)
+        assert kst.traverse.resized == n + int(over)
+        for a, b in zip(out[:3], ref[:3]):
+            assert torch.equal(a, b)
+        assert out[3:] == ref[3:]
+    assert _sync_count(lambda: kst.traverse(octree, exsum, ph, o, d,
+                                            level)) == 1

@@ -393,3 +393,28 @@ def test_empty_cloud_raises(name, side):
     clouds[side] = torch.zeros(2, 0, 3)
     with pytest.raises(ValueError, match=f'{names[side]} is empty'):
         fn(*clouds)
+
+
+@pytest.mark.parametrize('mode', ['bilinear', 'nearest'])
+def test_grid_sample_no_channels(mode):
+    """A texture of no channels: ``kaolin_tpu``'s XLA path samples an empty
+    (B, 0, h, w) and gives zero gradients to the grid; so does the port on
+    the CPU, whose plain versions failed to reshape an empty texture."""
+    rng = np.random.default_rng(0)
+    maps = np.zeros((2, 0, 5, 7), np.float32)
+    grid = rng.uniform(-1., 1., (2, 3, 4, 2)).astype(np.float32)
+
+    def jloss(m, g):
+        return jnp.sum(kal.render.mesh.utils.grid_sample_2d(
+            m, g, mode, backend='xla'))
+
+    ref = kal.render.mesh.utils.grid_sample_2d(
+        jnp.asarray(maps), jnp.asarray(grid), mode, backend='xla')
+    ref_dm, ref_dg = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(maps),
+                                                    jnp.asarray(grid))
+    tm, tg = _t(maps, True), _t(grid, True)
+    out = kt.render.mesh.utils.grid_sample_2d(tm, tg, mode)
+    assert tuple(out.shape) == ref.shape == (2, 0, 3, 4)
+    dm, dg = torch.autograd.grad(out.sum(), [tm, tg])
+    _eq(ref_dm, dm)
+    _eq(ref_dg, dg)

@@ -266,7 +266,7 @@ def test_ctypes_signatures_match_sources():
         for name, argtypes in mod._SIGNATURES.items():
             assert entry[name] == argtypes, name
             seen += 1
-    assert seen == len(entry) == 18
+    assert seen == len(entry) == 19
 
 
 def test_nn_layout_matches_source():
