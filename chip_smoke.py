@@ -96,7 +96,16 @@ over their own per-tile face lists and over the soft mask's (the shared
 binning of ``dibr_rasterization``), two launches against each other; the
 counts that size their designs are logged for each size (``forward
 counts`` and ``backward counts`` lines). The brute-force ``nearest_idx``
-is also timed at the mesh fit's F-score shape (10,000 x 10,000 points).
+is also timed at the mesh fit's F-score shape (10,000 x 10,000 points)
+and at ``examples/dibr_train.py``'s final Chamfer (2,048 x 2,048, batch
+1), each with its CUDA launches and host syncs a call and beside both of
+``torch.cdist``'s forms + ``argmin``, and the ``f_score`` and
+``chamfer_distance`` at those sizes end to end. Both NN kernels are held
+against their plain versions on two NaN scenes (config 3's clouds and
+the F-score's, a NaN coordinate in a reference of the first, a middle
+and the last chunk of 1024, and a NaN, an inf and a -inf query): no
+reference of a chunk that holds a NaN may be taken, as in the XLA scan;
+the pruned prepass on the card against its plain version on both.
 
 The grid-sample backward's texture gradient must be the same bits at two
 launches (the second with the forward's interleaved copy) in every case,
@@ -114,7 +123,10 @@ render kernels and the forward render at D = 4 and 40, both render backwards
 the bench and config 2 train steps (with their device time),
 ``grid_sample``, ``F.grid_sample``, ``p2m_select`` on its three scenes,
 ``nearest_idx_pruned`` on config 3, the sphere-centre scene and two
-clouds of NN_BIG points, ``nearest_idx`` at the F-score's shape,
+clouds of NN_BIG points, the pruned prepass alone, ``nearest_idx`` at
+the F-score's, the DIB-R Chamfer's and config 3's shapes (with ``nvcc
+-Xptxas -v`` of ``nn_distance.cu``), ``f_score`` and ``chamfer_distance``
+end to end,
 ``deftet_topk`` on config 4 at knum 30 and 300 and on the full-cover
 scene, and the textured, config 3 and config 4 steps (see ``compare``
 for the groups that select them), through phase functions that call
@@ -201,6 +213,13 @@ FIT3_EVAL, FIT3_RADIUS = 10_000, 0.05
 # the pruned NN scan at a larger size: two uniform clouds of NN_BIG points
 # drawn as config 3's are, held against the brute-force kernel
 NN_BIG = 1_000_000
+# examples/dibr_train.py:126-131: the final Chamfer between DIBR_CHAMFER_N
+# points sampled on the fit and on the target, batch 1 (the brute-force
+# kernel's, as the F-score's FIT3_EVAL)
+DIBR_CHAMFER_N = 2048
+# the library's direct form (cdist_argmin) is timed at sizes up to this
+# many points a cloud: at config 3's 100,000 one call takes 12.5 s
+CDIST_DIRECT_MAX = 10_000
 # check_sign: CHECK_N seeded points in [-1.5, 1.5]^3 against the unit
 # icosphere of subdivision 5, CHECK_CPU of them also on the CPU
 CHECK_N, CHECK_CPU = 100_000, 4096
@@ -1074,23 +1093,46 @@ def forward_times(label, sc):
     return out
 
 
-def nn_fscore_times(label):
-    """The brute-force ``nearest_idx`` at the mesh fit's F-score shape
-    (FIT3_EVAL x FIT3_EVAL points, both ways in the F-score), with CUDA
-    events and by the card alone, beside its bound."""
-    p1, p2 = kt.utils.interop.metrics_scene(SEED, FIT3_EVAL, FIT3_EVAL, 1)[:2]
+def nn_brute_times(label, n):
+    """The brute-force ``nearest_idx`` on two uniform clouds of n points
+    (B = 1), with CUDA events and by the card alone, its CUDA launches and
+    host syncs a call, beside its bound and the library's two forms
+    (``cdist_argmin`` up to CDIST_DIRECT_MAX points)."""
+    p1, p2 = kt.utils.interop.metrics_scene(SEED, n, n, 1)[:2]
 
     def fn():
         return kn.nearest_idx(p1, p2)
-    bnd = bound(4 * (3 * FIT3_EVAL * 2 + FIT3_EVAL),
-                FIT3_EVAL ** 2 * OPS_NN_PAIR)
+    bnd = bound(4 * (3 * n * 2 + n), n ** 2 * OPS_NN_PAIR)
+    what = f'nearest_idx, {n} x {n}'
     out = dict(ms=time_ms(fn, TIME_ITERS),
-               device_ms=device_ms(f'[{label}] nearest_idx, {FIT3_EVAL} x '
-                                   f'{FIT3_EVAL}', fn),
-               bound_ms=bnd[0], bound_by=bnd[1],
-               library_ms=time_ms(lambda: cdist_argmin(p1, p2), TIME_ITERS))
-    log(f'[{label}] time nearest_idx ({FIT3_EVAL} x {FIT3_EVAL} points, the '
-        'mesh fit\'s F-score): ' + json.dumps(out))
+               device_ms=device_ms(f'[{label}] {what}', fn),
+               launches_per_call=launches_per_call(f'[{label}] {what}', fn),
+               host_syncs=host_syncs(fn), bound_ms=bnd[0], bound_by=bnd[1],
+               library_ms=(time_ms(lambda: cdist_argmin(p1, p2), TIME_ITERS)
+                           if n <= CDIST_DIRECT_MAX else None),
+               library_mm_ms=time_ms(lambda: cdist_mm_argmin(p1, p2),
+                                     TIME_ITERS))
+    log(f'[{label}] time {what} points: ' + json.dumps(out))
+    return out
+
+
+def nn_metric_times(label):
+    """End to end, through the brute-force kernel: ``f_score`` of two
+    clouds of FIT3_EVAL points (the mesh fit's) and ``chamfer_distance`` of
+    two of DIBR_CHAMFER_N (``examples/dibr_train.py``'s), B = 1, each with
+    CUDA events and by the card alone. Returns {name: times}."""
+    p1, p2 = kt.utils.interop.metrics_scene(SEED, FIT3_EVAL, FIT3_EVAL, 1)[:2]
+    q1, q2 = kt.utils.interop.metrics_scene(SEED, DIBR_CHAMFER_N,
+                                            DIBR_CHAMFER_N, 1)[:2]
+    fns = {f'f_score, {FIT3_EVAL} x {FIT3_EVAL}':
+           lambda: kt.metrics.pointcloud.f_score(p1, p2, radius=FIT3_RADIUS),
+           f'chamfer_distance, {DIBR_CHAMFER_N} x {DIBR_CHAMFER_N}':
+           lambda: kt.metrics.pointcloud.chamfer_distance(q1, q2)}
+    out = {}
+    for key, fn in fns.items():
+        out[key] = dict(ms=time_ms(fn, TIME_ITERS),
+                        device_ms=device_ms(f'[{label}] {key}', fn))
+        log(f'[{label}] time {key}: ' + json.dumps(out[key]))
     return out
 
 
@@ -1383,6 +1425,28 @@ def host_syncs(fn):
     torch.cuda.synchronize()
     # (the mode's first use also warns that it is a prototype)
     return sum('called a synchronizing' in str(w.message) for w in caught)
+
+
+def host_wall_ms(fn, calls=10, reps=5):
+    """The host's ms a call to issue ``calls`` calls of ``fn`` (no sync
+    among them) and the wall ms a call until the card has run them, from
+    the same start, over ``reps`` repetitions after three warm-up calls:
+    dict(host_ms, wall_ms), each sorted. Where host_ms comes near wall_ms,
+    the host keeps the card waiting."""
+    for _ in range(3):
+        fn()
+    host, wall = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        host.append((t1 - t0) / calls * 1e3)
+        wall.append((t2 - t0) / calls * 1e3)
+    return dict(host_ms=sorted(host), wall_ms=sorted(wall))
 
 
 # the kernel that ends a level of the traversal in a profile: the parent
@@ -1824,6 +1888,7 @@ def nn_checks(label, p1, p2, errs):
     pruned kernel against brute force; the largest difference of the
     chosen distances goes into ``errs``."""
     brute = kn.nearest_idx(p1, p2)
+    brute_again = kn.nearest_idx(p1, p2)
     pruned = kn.nearest_idx_pruned(p1, p2)
     again = kn.nearest_idx_pruned(p1, p2)
     plain = kn.nearest_idx_plain(p1, p2)
@@ -1831,15 +1896,23 @@ def nn_checks(label, p1, p2, errs):
     m_brute = int((brute != plain).sum())
     m_pruned = int((pruned != plain).sum())
     m_pair = int((pruned != brute).sum())
-    same = bool(torch.equal(pruned, again))
+    same = bool(torch.equal(pruned, again) and torch.equal(brute,
+                                                           brute_again))
     ref = nn_dist(p1, p2, plain)
-    e_brute = float((nn_dist(p1, p2, brute) - ref).abs().max())
-    e_pruned = float((nn_dist(p1, p2, pruned) - ref).abs().max())
+
+    def err(idx):
+        # equal distances, inf or NaN on both sides included (a non-finite
+        # query's), are no difference
+        d = nn_dist(p1, p2, idx)
+        same = (d == ref) | (d.isnan() & ref.isnan())
+        return float(torch.where(same, 0., (d - ref).abs()).max())
+    e_brute, e_pruned = err(brute), err(pruned)
     log(f'[{label}] {p1.shape[1]} queries x {p2.shape[1]} references: '
         f'index mismatches against the plain version: nearest_idx {m_brute}, '
         f'nearest_idx_pruned {m_pruned}; pruned vs brute force {m_pair}; '
         'largest difference of the chosen distances '
-        f'{max(e_brute, e_pruned)}; two pruned launches bit-identical {same}')
+        f'{max(e_brute, e_pruned)}; two launches of each bit-identical '
+        f'{same}')
     expect(m_brute == 0 and m_pruned == 0 and m_pair == 0 and same,
            f'[{label}] a nearest-neighbour kernel disagrees')
     errs['nearest_idx'] = max(errs['nearest_idx'], e_brute)
@@ -1985,6 +2058,40 @@ def cdist_argmin(p1, p2, rows=4096):
                       for i in range(0, p1.shape[1], rows)], dim=1)
 
 
+def cdist_mm_argmin(p1, p2, rows=4096):
+    """The library's faster yardstick: ``torch.cdist`` in its
+    matrix-product form (|q|^2 - 2 q.r + |r|^2 through a float32 matrix
+    product, then a square root: other roundings, so near ties may go
+    another way), then ``argmin``, over blocks of queries."""
+    return torch.cat([torch.cdist(p1[:, i:i + rows], p2, compute_mode=
+                                  'use_mm_for_euclid_dist').argmin(-1)
+                      for i in range(0, p1.shape[1], rows)], dim=1)
+
+
+def nan_scenes():
+    """The NaN-chunk rule's scenes, (name, queries, references): config 3's
+    clouds (the pruned route's size) and the F-score's (the brute-force
+    route's, slices of 256), with a NaN coordinate in a reference of the
+    first chunk of 1024, a middle one and the last, partial one; the DIB-R
+    example's Chamfer clouds (slices of 64, 16 to a chunk) with one in a
+    middle slice of the second chunk, so that the first stays clean; each
+    with a NaN, an inf and a -inf query. No reference of a chunk with a
+    NaN may be taken."""
+    out = []
+    for name, n, at in (
+            ('config3 with NaN', M3_N, (700, M3_N // 2, M3_N - 1)),
+            ('f-score with NaN', FIT3_EVAL, (700, FIT3_EVAL // 2,
+                                             FIT3_EVAL - 1)),
+            ('dibr chamfer with NaN', DIBR_CHAMFER_N, (1500,))):
+        p1, p2 = kt.utils.interop.metrics_scene(SEED + 1, n, n, 1)[:2]
+        for axis, j in enumerate(at):
+            p2[0, j, axis] = float('nan')
+        p1[0, :3, 0] = torch.tensor([float('nan'), float('inf'),
+                                     float('-inf')])
+        out.append((name, p1, p2))
+    return out
+
+
 def lattice_ties():
     """References on a 64 x 48 x 32 lattice of step 1/64 (98,304 points,
     shuffled) and M3_N queries at cell centres: every coordinate and
@@ -2040,14 +2147,16 @@ def fit_clouds():
 
 def prepass_checks(label, p1, p2):
     """The card's pruned prepass against its plain version on the card:
-    keys, order, records and frame bit for bit, chunk boxes by value
-    (their keys, in w, bit for bit)."""
+    keys, order, records and frame bit for bit, chunk boxes by value (NaN
+    where a box holds only NaN records; their keys, in w, bit for bit)."""
     got, ref = kn.prepass(p1, p2), kn._prepass_plain(p1, p2)
     torch.cuda.synchronize()
     same = [torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
                         b.view(torch.int32) if b.is_floating_point() else b)
             for a, b in zip(got[:4] + got[5:], ref[:4] + ref[5:])]
-    same.append(torch.equal(got[4][..., :3], ref[4][..., :3])
+    box, rbox = got[4][..., :3], ref[4][..., :3]
+    same.append(torch.equal(box.isnan(), rbox.isnan())
+                and torch.equal(box.nan_to_num(0.), rbox.nan_to_num(0.))
                 and torch.equal(got[4][..., 3].contiguous().view(torch.int32),
                                 ref[4][..., 3].contiguous().view(torch.int32)))
     log(f'[{label}] pruned prepass, card vs plain (keys, order, query '
@@ -2094,6 +2203,17 @@ def nn_times(label, p1, p2):
                    f'[{label}] nearest_idx_pruned', fn))
     log(f'[{label}] time nearest_idx_pruned ({p1.shape[1]} queries x '
         f'{p2.shape[1]} references): ' + json.dumps(out))
+    return out
+
+
+def prepass_times(label, p1, p2):
+    """The pruned scan's prepass alone, with CUDA events and by the card
+    alone: dict(ms, device_ms)."""
+    def fn():
+        return kn.prepass(p1, p2)
+    out = dict(ms=time_ms(fn, TIME_ITERS),
+               device_ms=device_ms(f'[{label}] the pruned prepass', fn))
+    log(f'[{label}] time of the pruned prepass: ' + json.dumps(out))
     return out
 
 
@@ -2179,6 +2299,13 @@ def metrics_kernel_phases():
     fit_pts, fit_target = fit_clouds()
     nn_checks('mesh fit samples->target', fit_pts, fit_target, errs)
     nn_checks('mesh fit target->samples', fit_target, fit_pts, errs)
+    c1, c2 = kt.utils.interop.metrics_scene(SEED, DIBR_CHAMFER_N,
+                                            DIBR_CHAMFER_N, 1)[:2]
+    nn_checks('dibr chamfer p1->p2', c1, c2, errs)
+    nn_checks('dibr chamfer p2->p1', c2, c1, errs)
+    for name, a, b in nan_scenes():
+        nn_checks(name, a, b, errs)
+        prepass_checks(name, a, b)
     for name, a, b in (('config3', p1, p2), ('sphere centre',
                                              *sphere_centre())):
         prepass_checks(name, a, b)
@@ -2206,6 +2333,11 @@ def metrics_kernel_phases():
     log(f'[config3] torch.cdist + argmin vs nearest_idx: {e_lib} index '
         'mismatches (cdist takes a square root and sums in its own order); '
         f'{lib_ms:.1f} ms, the library time of both NN rows')
+    lib_mm = cdist_mm_argmin(p1, p2)
+    e_mm = int((lib_mm.to(torch.int32) != kn.nearest_idx(p1, p2)).sum())
+    lib_mm_ms = time_ms(lambda: cdist_mm_argmin(p1, p2), 3)
+    log(f'[config3] torch.cdist (matrix-product form) + argmin vs '
+        f'nearest_idx: {e_mm} index mismatches; {lib_mm_ms:.4f} ms')
 
     nbytes = 4 * (2 * 3 * M3_N + M3_N)
     shape = (f'1 x {M3_N} queries x {M3_N} references (config 3, '
@@ -2215,12 +2347,18 @@ def metrics_kernel_phases():
     bnd = bound(nbytes, M3_N ** 2 * OPS_NN_PAIR)
     times['nearest_idx'] = dict(
         ms=time_ms(lambda: kn.nearest_idx(p1, p2), TIME_ITERS),
-        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd[0],
-        bound_by=bnd[1], shape=shape)
+        plain_ms=plain_ms, library_ms=lib_ms, library_mm_ms=lib_mm_ms,
+        bound_ms=bnd[0], bound_by=bnd[1], shape=shape)
     log('[config3] time nearest_idx: ' + json.dumps(times['nearest_idx']))
-    # the shape the main path gives it: the mesh fit's F-score
+    # the shapes the main paths give it: the mesh fit's F-score and the
+    # DIB-R example's Chamfer
     times['nearest_idx'].update({f'fscore_{k}': v for k, v in
-                                 nn_fscore_times('config3 fit').items()})
+                                 nn_brute_times('config3 fit',
+                                                FIT3_EVAL).items()})
+    times['nearest_idx'].update({
+        f'chamfer{DIBR_CHAMFER_N}_{k}': v for k, v in
+        nn_brute_times('dibr chamfer', DIBR_CHAMFER_N).items()})
+    nn_metric_times('end to end')
     nn = {}
     for name, a, b in (('config3', p1, p2), ('config3 p2->p1', p2, p1),
                        ('sphere centre', *sphere_centre()),
@@ -2231,7 +2369,8 @@ def metrics_kernel_phases():
                                    nn_bound(name, a, b))))
     nn_scanned(f'{NN_BIG} points', *nn_big_times(f'{NN_BIG} points')[1])
     times['nearest_idx_pruned'] = dict(
-        nn['config3'], plain_ms=plain_ms, library_ms=lib_ms, shape=shape)
+        nn['config3'], plain_ms=plain_ms, library_ms=lib_ms,
+        library_mm_ms=lib_mm_ms, shape=shape)
     log('[config3] time nearest_idx_pruned: '
         + json.dumps(times['nearest_idx_pruned']))
     prepass_ms = time_ms(lambda: kn.prepass(p1, p2), TIME_ITERS)
@@ -2977,11 +3116,14 @@ def compare(label, groups=COMPARE_GROUPS):
     random one and random coordinates over the 256x256 and 64x64
     textures, ``sampler_times``, ``grid_sample_backward`` at the step's
     and the random cotangent, the textured step (with its device time
-    and the backward's kernels in it); ``metrics``: ``p2m_times`` on
-    ``p2m_scenes``, ``nn_times`` on config 3 and the sphere-centre scene,
-    ``nn_big_times``, ``nn_fscore_times``, the config 3 step
-    (``metrics_path``); ``deftet``: ``deftet_times`` on config 4 at knum
-    30 and 300 and on the full-cover scene, the config 4 step
+    and the backward's kernels in it); ``metrics``: ``resource_usage`` of
+    ``nn_distance.cu``, ``nn_brute_times`` at FIT3_EVAL, DIBR_CHAMFER_N
+    and M3_N points, ``nn_metric_times``, ``p2m_times`` on
+    ``p2m_scenes``, ``nn_times`` (with ``host_wall_ms``) and
+    ``prepass_times`` on config 3, ``nn_times`` on the sphere-centre
+    scene, ``nn_big_times``, the config 3 step (``metrics_path``, with
+    ``host_wall_ms`` of one step); ``deftet``: ``deftet_times`` on config
+    4 at knum 30 and 300 and on the full-cover scene, the config 4 step
     (``deftet_path``); ``spc``: ``resource_usage`` of
     ``spc_traverse.cu``, ``traverse`` and the config 5 trace
     (``unbatched_raytrace``), each with its device time, device
@@ -3044,17 +3186,26 @@ def compare(label, groups=COMPARE_GROUPS):
             grid_sample_backward_in_step_ms=in_step))
         del tsc
     if 'metrics' in groups:
+        resource_usage(('nn_distance',))
+        for n in (FIT3_EVAL, DIBR_CHAMFER_N, M3_N):
+            report(f'nearest_idx, {n} x {n}', nn_brute_times(label, n))
+        for key, t in nn_metric_times(label).items():
+            report(key, t)
         for name, t in p2m_times(label, p2m_scenes()).items():
             report(f'p2m_select, {name}', t)
-        p1, p2, _ = kt.utils.interop.metrics_scene(SEED, M3_N, M3_N, M3_FACES)
-        report('nearest_idx_pruned, config3', nn_times(label, p1, p2))
+        p1, p2, fv = kt.utils.interop.metrics_scene(SEED, M3_N, M3_N,
+                                                    M3_FACES)
+        report('nearest_idx_pruned, config3', dict(
+            nn_times(label, p1, p2),
+            **host_wall_ms(lambda: kn.nearest_idx_pruned(p1, p2))))
+        report('prepass, config3', prepass_times(label, p1, p2))
         report('nearest_idx_pruned, sphere centre',
                nn_times(label, *sphere_centre()))
         report(f'nearest_idx_pruned, {NN_BIG} points',
                nn_big_times(label)[0])
-        report(f'nearest_idx, {FIT3_EVAL} x {FIT3_EVAL}',
-               nn_fscore_times(label))
-        report('config3_step', {'ms': metrics_path()[1]})
+        report('config3_step', dict(
+            ms=metrics_path()[1], **host_wall_ms(
+                lambda: kt.utils.interop.metrics_step(p1, p2, fv))))
     if 'deftet' in groups:
         d4 = kt.utils.interop.deftet_scene(seed=SEED, side=D4_SIDE,
                                            num_faces=D4_FACES)
@@ -3202,10 +3353,15 @@ def main():
                                               'cull_skipped', 'scanned',
                                               'cube_pairs',
                                               'launches_per_call',
+                                              'library_mm_ms',
                                               'fscore_ms',
                                               'fscore_device_ms',
                                               'fscore_bound_ms',
-                                              'fscore_library_ms')
+                                              'fscore_library_ms',
+                                              'fscore_library_mm_ms',
+                                              'chamfer2048_ms',
+                                              'chamfer2048_device_ms',
+                                              'chamfer2048_bound_ms')
                             if k in t}))
     expect(all(row['launches'] > 0 for row in rows),
            'a kernel of the kernels line was launched on no path')

@@ -8,27 +8,76 @@
 // VMEM (at most 640k points); these read it from device memory and take
 // any size.
 //
-// Distance and ties, as the plain PyTorch version (nearest_idx_plain) and
-// the JAX package's XLA scan: d = p - q, then (dx*dx + dy*dy) + dz*dz,
-// compiled with --fmad=false so that no product is fused into a sum.
-// Brute force scans the references in index order and takes a distance
-// only when it is strictly smaller, so ties keep the lowest index, and the
-// index is 0 until a distance is taken (every distance inf or NaN). The
-// pruned scan sees the references in another order, so it keeps the
+// Distance, ties and NaN, as the plain PyTorch version (nearest_idx_plain)
+// and the JAX package's XLA scan: d = p - q, then (dx*dx + dy*dy) + dz*dz,
+// compiled with --fmad=false so that no product is fused into a sum. The
+// XLA scan takes the references in chunks of CHUNK = 1024 original
+// indices, takes a chunk's first minimum only when it is strictly smaller
+// than the best so far, and keeps index 0 until it takes one. A chunk's
+// minimum is NaN, and the chunk is passed over, when any of its distances
+// is NaN: for a finite query exactly when a reference of the chunk has a
+// NaN coordinate (an infinite one gives inf); for a query with a
+// non-finite coordinate every distance is inf or NaN and nothing is taken
+// anyway. So both kernels keep this rule: the first reference of least
+// distance, ties to the lowest index, index 0 when none is taken, and no
+// reference taken from a chunk (base = 1024 * (j / 1024)) that holds a NaN
+// coordinate.
+//
+// Brute force: nn_brute_kernel, then nn_merge_kernel when the references
+// are split. What bounds it on an H100: operations. 9 float operations
+// per (query, reference) pair (3 subtractions, 3 products, 2 sums, 1 min),
+// 10^10 pairs at config 3's 100k x 100k: 1.34 ms at 67 TFLOP/s, a rate
+// that counts a fused multiply-add as two. With --fmad=false nothing
+// fuses, so a pair issues 9 instructions, and about 0.5 more for the
+// loads and the group's compare below; an SM issues 128 lanes a clock:
+// at 1.98 GHz about 2.8 ms at 100k x 100k and 0.028 ms at 10k x 10k, 2.1
+// times the bound. The bytes (12 per point in, 4 per query out) are a
+// few megabytes. The design:
+// - a block takes QB = 384 queries (RQ = 3 a thread, in registers) and a
+//   slice of the references, which pass through shared memory a chunk
+//   (up to 1024) at a time as float4 records, staged by cp.async while
+//   the chunk before is scanned: one 16-byte broadcast load serves 3
+//   pairs;
+// - a thread folds each group of G = 16 references into one least
+//   distance a query with fminf (which drops NaN, as the scan never takes
+//   it) and compares it with the query's best once a group, keeping the
+//   group's number; after the chunk, for a query whose best moved, it
+//   finds the first reference of that group at that distance. So a pair
+//   costs 8 operations and a min, and the compare and the index are off
+//   its path;
+// - the block ORs a NaN flag over the chunk it staged (__syncthreads_or,
+//   the chunk's barrier) and skips a flagged chunk;
+// - the grid is B * ceil(N1 / QB) query tiles by S slices of L
+//   references, planned on the host (brute_plan, kernels/nn_distance.py)
+//   from B, N1, N2 and the SM count so that the blocks share the SMs
+//   evenly: S = 1 where the tiles do so alone. L is a multiple of 1024, so
+//   that a slice holds whole chunks, or a power of two below 1024, so that
+//   a chunk is whole slices; such a slice cannot see its chunk's flag and
+//   writes a NaN partial instead;
+// - with S > 1 every block writes its queries' (distance, index) partials,
+//   (B, N1, S), in full; nn_merge_kernel, a warp a query, drops each chunk
+//   that holds a NaN partial and takes the least (distance, index) pair of
+//   the rest, which is what a strict < over the slices in order takes, in
+//   whatever order it reduces. Two launches at most, no host read, no
+//   memset, the same bits at every launch.
+//
+// The pruned scan meets the references in another order, so it keeps the
 // smallest (distance, original index) pair, and writes 0 where its best
-// distance is still inf (every distance inf or NaN): the same index.
+// distance is still inf (every distance inf or NaN): the same index. It
+// keeps the NaN rule through its prepass: nn_codes_kernel flags each
+// (batch entry, chunk of 1024 original indices) that holds a NaN
+// coordinate (flags that nn_extent_kernel, launched before it, zeroes),
+// and nn_pack_kernel writes NaN coordinates into the record of every
+// reference of a flagged chunk. Its distance is then NaN for every query,
+// and the scan, which takes d <= best only, never takes it.
 //
-// What bounds it on an H100: operations. 9 float operations per (query,
-// reference) pair (3 subtractions, 3 products, 2 sums, 1 compare), 10^10
-// pairs at config 3's 100k x 100k by brute force: 1.34 ms at 67 TFLOP/s;
-// the bytes (12 per point in, 4 per query out) are a few megabytes. The
-// nearest neighbour of a point lies among a handful of references, so the
-// pruned scan's bound is the pairs no box test can rule out (chip_smoke.py
-// counts them from the winners).
-//
-// The pruned design, four kernels and a sort on one stream:
+// What bounds the pruned scan: the nearest neighbour of a point lies among
+// a handful of references, so its bound is the pairs no box test can rule
+// out (chip_smoke.py counts them from the winners). The design, four
+// kernels and a sort on one stream:
 // 1. nn_extent_kernel: per batch entry, EXT_BLOCKS blocks each reduce the
-//    min and max of a stripe of both clouds.
+//    min and max of a stripe of both clouds, and zero the entry's chunk
+//    flags.
 // 2. nn_codes_kernel: each block reduces the stripes' extents of its batch
 //    entry into one box (lo, span) shared by both clouds, as the plain
 //    prepass forms it (the entry's first block writes it to `frame` for
@@ -36,15 +85,16 @@
 //    (2 b + cloud) in the top bits, below it the Morton code of the point
 //    on a 2^m grid of that box (m = 10 for B <= 2). The keys are stored
 //    with the top bit flipped, so that their order as signed ints (the
-//    order torch.sort gives) is their order as unsigned ones.
+//    order torch.sort gives) is their order as unsigned ones. A reference
+//    with a NaN coordinate sets its chunk's flag.
 // 3. torch.sort(keys, stable=True), outside this file: one sort of both
 //    clouds of every batch entry; each (entry, cloud) is a contiguous run.
 // 4. nn_pack_kernel: writes both sorted clouds as float4 records (x, y, z,
-//    the original index's bits), the queries padded to tiles of TQ and the
-//    references to chunks of CH by repeating the last sorted point with
-//    the index PAD_ORIG, and each reference chunk's box (lo, hi), one warp
-//    per chunk, with the bits of its first and last sort key in lo.w and
-//    hi.w.
+//    the original index's bits; x, y, z NaN for a reference of a flagged
+//    chunk), the queries padded to tiles of TQ and the references to
+//    chunks of CH by repeating the last sorted point with the index
+//    PAD_ORIG, and each reference chunk's box (lo, hi), one warp per
+//    chunk, with the bits of its first and last sort key in lo.w and hi.w.
 // 5. nn_pruned_kernel: one warp per tile of TQ sorted queries (R a lane,
 //    kept in registers with their best distances). The warp finds its
 //    place among the sorted references (a binary search of the middle
@@ -80,7 +130,11 @@
 // distance > best and is neither the winner nor tied with it. The same
 // holds for the warp's query box in place of q (its gap is at most each
 // query's) and its largest best. A NaN gap (NaN inputs) never skips, and
-// fmaxf drops a NaN operand, giving 0. So the result is the full scan's,
+// fmaxf drops a NaN operand, giving 0. The NaN records of flagged chunks
+// keep this true: a chunk's box is reduced with fminf and fmaxf, which
+// drop NaN, so it bounds the chunk's other records, the only ones that can
+// be taken (a chunk of NaN records only has a NaN box, whose gap is 0: it
+// is scanned and gives nothing). So the result is the full scan's,
 // whatever the visiting order, and two launches give the same bits.
 //
 // Why the walk's end changes nothing. Let worst, the largest best of the
@@ -97,12 +151,15 @@
 // coordinate, and so is the Morton code of the cells, so a candidate's
 // key lies in [key(L), key(H)]: a chunk with none there holds none. NaN
 // and infinite coordinates map to cell 0 and give equal, not inverted,
-// keys; a NaN reference is never taken. The references sorted, the chunks
-// past c0 have keys at or above the middle query's, which is at least
-// key(L), and those before c0 keys below it, which is at most key(H): a
-// chunk beyond H on the right, or below L on the left, has all the chunks
-// past it so too, and as the bests only shrink, [L, H] only shrinks. A
-// step whose chunks are all so skipped is therefore the last.
+// keys; a NaN record is never taken. A flagged reference keeps the key of
+// its own coordinates: the marking changes no key, no order and no box's
+// w, and takes away only references that are no candidates. The
+// references sorted, the chunks past c0 have keys at or above the middle
+// query's, which is at least key(L), and those before c0 keys below it,
+// which is at most key(H): a chunk beyond H on the right, or below L on
+// the left, has all the chunks past it so too, and as the bests only
+// shrink, [L, H] only shrinks. A step whose chunks are all so skipped is
+// therefore the last.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -111,8 +168,12 @@
 
 namespace {
 
-constexpr int THREADS = 128;   // brute force: queries per block
-constexpr int CHUNK = 1024;    // brute force: references staged per pass
+constexpr int BT = 128;        // brute force: threads per block
+constexpr int RQ = 3;          // brute force: queries per thread
+constexpr int QB = BT * RQ;    // brute force: queries per block
+constexpr int G = 16;          // brute force: references per fold
+constexpr int CHUNK = 1024;    // the NaN rule's chunk of references
+constexpr int MIN_SLICE = 32;  // brute force: fewest references a slice
 constexpr int R = 2;           // pruned: queries per lane
 constexpr int TQ = 32 * R;     // pruned: queries per warp tile
 constexpr int CH = 32;         // pruned: references per chunk
@@ -127,39 +188,165 @@ __device__ __forceinline__ float sq_dist(float qx, float qy, float qz,
   return (dx * dx + dy * dy) + dz * dz;
 }
 
-// p1 (B, N1, 3), p2 (B, N2, 3); idx (B, N1)
-__global__ void __launch_bounds__(THREADS)
+// Starts the copy of n references (3n floats at ref) into buf as float4
+// records, one float a cp.async, and pads the records to a multiple of G
+// with +inf, whose distance is inf or NaN and never taken.
+__device__ __forceinline__ void stage_refs(float4* buf, const float* ref,
+                                           int n) {
+  float* f = reinterpret_cast<float*>(buf);
+  for (int e = threadIdx.x; e < 3 * n; e += BT) {
+    const int k = e / 3;
+    const unsigned s =
+        (unsigned)__cvta_generic_to_shared(f + 4 * k + (e - 3 * k));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(ref + e));
+  }
+  for (int k = n + threadIdx.x; k < (n + G - 1) / G * G; k += BT)
+    buf[k] = make_float4(INFINITY, INFINITY, INFINITY, 0.f);
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Whether a float this thread copied into buf (n references) is NaN; call
+// after its copies have completed.
+__device__ __forceinline__ bool staged_nan(const float4* buf, int n) {
+  const float* f = reinterpret_cast<const float*>(buf);
+  bool nan = false;
+  for (int e = threadIdx.x; e < 3 * n; e += BT) {
+    const int k = e / 3;
+    nan |= isnan(f[4 * k + (e - 3 * k)]);
+  }
+  return nan;
+}
+
+// p1 (B, N1, 3), p2 (B, N2, 3). Block (b * C1 + tile, s) scans references
+// [s L, min((s + 1) L, N2)) for queries [tile QB, (tile + 1) QB) of entry
+// b. part == nullptr (one slice): idx (B, N1) gets the indices; else part
+// (B, N1, S) gets (distance, index bits), NaN where L < CHUNK and the
+// slice holds a NaN coordinate.
+__global__ void __launch_bounds__(BT)
 nn_brute_kernel(const float* __restrict__ p1, const float* __restrict__ p2,
-                int* __restrict__ idx, int N1, int N2) {
-  __shared__ float sx[CHUNK], sy[CHUNK], sz[CHUNK];
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  // threads past N1 load the last query and write nothing, so that every
-  // thread reaches the barriers
-  const float* q = p1 + ((size_t)b * N1 + min(i, N1 - 1)) * 3;
-  const float qx = q[0], qy = q[1], qz = q[2];
+                int* __restrict__ idx, float2* __restrict__ part, int N1,
+                int N2, int L, int C1) {
+  extern __shared__ float4 sbuf[];
+  const int K = min(L, CHUNK);
+  const int b = blockIdx.x / C1, tile = blockIdx.x % C1, s = blockIdx.y;
+  const int s0 = s * L, s1 = min(N2 - s0, L) + s0;
   const float* ref = p2 + (size_t)b * N2 * 3;
-  float best = INFINITY;
-  int best_i = 0;
-  for (int base = 0; base < N2; base += CHUNK) {
-    const int n = min(CHUNK, N2 - base);
-    __syncthreads();
-    for (int k = threadIdx.x; k < n; k += THREADS) {
-      const float* r = ref + (size_t)(base + k) * 3;
-      sx[k] = r[0];
-      sy[k] = r[1];
-      sz[k] = r[2];
+  // threads past N1 take the last query and write nothing, so that every
+  // thread reaches the barriers
+  float qx[RQ], qy[RQ], qz[RQ], best[RQ];
+  int bi[RQ];
+#pragma unroll
+  for (int r = 0; r < RQ; ++r) {
+    const int i = min(tile * QB + r * BT + (int)threadIdx.x, N1 - 1);
+    const float* q = p1 + ((size_t)b * N1 + i) * 3;
+    qx[r] = q[0];
+    qy[r] = q[1];
+    qz[r] = q[2];
+    best[r] = INFINITY;
+    bi[r] = 0;
+  }
+  const int T = (s1 - s0 + K - 1) / K;
+  bool flagged = false;
+  stage_refs(sbuf, ref + (size_t)s0 * 3, min(K, s1 - s0));
+  for (int t = 0; t < T; ++t) {
+    const int base = s0 + t * K, n = min(K, s1 - base);
+    const float4* cur = sbuf + (t & 1) * K;
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    // the barrier: the chunk is in, and the other buffer is free
+    const bool nan = __syncthreads_or(staged_nan(cur, n));
+    if (t + 1 < T)
+      stage_refs(sbuf + ((t + 1) & 1) * K, ref + (size_t)(base + K) * 3,
+                 min(K, s1 - base - K));
+    flagged |= nan;
+    if (nan) continue;
+    int grp[RQ];
+#pragma unroll
+    for (int r = 0; r < RQ; ++r) grp[r] = -1;
+    const int groups = (n + G - 1) / G;
+#pragma unroll 2
+    for (int k = 0; k < groups; ++k) {
+      const float4* gp = cur + k * G;
+      float m[RQ];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float4 p = gp[g];
+#pragma unroll
+        for (int r = 0; r < RQ; ++r) {
+          const float d = sq_dist(qx[r], qy[r], qz[r], p.x, p.y, p.z);
+          m[r] = g == 0 ? d : fminf(m[r], d);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RQ; ++r) {
+        if (m[r] < best[r]) {
+          best[r] = m[r];
+          grp[r] = k;
+        }
+      }
     }
-    __syncthreads();
-    for (int k = 0; k < n; ++k) {
-      const float d = sq_dist(qx, qy, qz, sx[k], sy[k], sz[k]);
-      if (d < best) {
-        best = d;
-        best_i = base + k;
+    // the first reference of the last group that lowered a best: the
+    // group's least distance is that best
+#pragma unroll
+    for (int r = 0; r < RQ; ++r) {
+      if (grp[r] >= 0) {
+        const float4* gp = cur + grp[r] * G;
+        int g = 0;
+        while (g < G - 1 && sq_dist(qx[r], qy[r], qz[r], gp[g].x, gp[g].y,
+                                    gp[g].z) != best[r])
+          ++g;
+        bi[r] = base + grp[r] * G + g;
       }
     }
   }
-  if (i < N1) idx[(size_t)b * N1 + i] = best_i;
+  const int S = gridDim.y;
+#pragma unroll
+  for (int r = 0; r < RQ; ++r) {
+    const int i = tile * QB + r * BT + threadIdx.x;
+    if (i >= N1) continue;
+    const size_t q = (size_t)b * N1 + i;
+    if (part == nullptr)
+      idx[q] = bi[r];
+    else
+      part[q * S + s] = flagged && L < CHUNK
+                            ? make_float2(NAN, 0.f)
+                            : make_float2(best[r], __int_as_float(bi[r]));
+  }
+}
+
+// part (BN1, S) from nn_brute_kernel, the slices of a chunk in groups of
+// GS (1 when a slice holds whole chunks, a power of two up to 32 else);
+// idx (BN1): one warp a query.
+__global__ void __launch_bounds__(256)
+nn_merge_kernel(const float2* __restrict__ part, int* __restrict__ idx,
+                long long BN1, int S, int GS) {
+  const long long q = ((long long)blockIdx.x * 256 + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (q >= BN1) return;  // the whole warp
+  float d = INFINITY;
+  int id = 0;
+  for (int s0 = 0; s0 < S; s0 += 32) {
+    const int s = s0 + lane;
+    const float2 p = s < S ? part[q * S + s] : make_float2(INFINITY, 0.f);
+    // a chunk's GS slices are GS aligned lanes: OR their NaN flags
+    bool nan = isnan(p.x);
+    for (int o = 1; o < GS; o <<= 1)
+      nan |= __shfl_xor_sync(FULL, (int)nan, o) != 0;
+    const int pi = __float_as_int(p.y);
+    if (!nan && (p.x < d || (p.x == d && pi < id))) {
+      d = p.x;
+      id = pi;
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const float d2 = __shfl_xor_sync(FULL, d, o);
+    const int i2 = __shfl_xor_sync(FULL, id, o);
+    if (d2 < d || (d2 == d && i2 < id)) {
+      d = d2;
+      id = i2;
+    }
+  }
+  if (lane == 0) idx[q] = id;
 }
 
 // The key layout for B batch entries: the segment takes the top sbits
@@ -205,13 +392,17 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // ext (B, EXT_BLOCKS, 6): each block's min xyz and max xyz over its
-// stripe of the batch entry's N1 + N2 points
+// stripe of the batch entry's N1 + N2 points; flags (B, NC), NC =
+// ceil(N2 / CHUNK): zeroed
 __global__ void __launch_bounds__(256)
 nn_extent_kernel(const float* __restrict__ p1, const float* __restrict__ p2,
-                 float* __restrict__ ext, int N1, int N2) {
+                 float* __restrict__ ext, int* __restrict__ flags, int N1,
+                 int N2) {
   __shared__ float part[8][6];
   const int b = blockIdx.y;
-  const int n = N1 + N2;
+  const int n = N1 + N2, NC = (N2 + CHUNK - 1) / CHUNK;
+  for (int c = blockIdx.x * 256 + threadIdx.x; c < NC; c += EXT_BLOCKS * 256)
+    flags[(size_t)b * NC + c] = 0;
   float lo[3] = {INFINITY, INFINITY, INFINITY};
   float hi[3] = {-INFINITY, -INFINITY, -INFINITY};
   for (int i = blockIdx.x * 256 + threadIdx.x; i < n; i += EXT_BLOCKS * 256) {
@@ -242,11 +433,13 @@ nn_extent_kernel(const float* __restrict__ p1, const float* __restrict__ p2,
 }
 
 // keys (B, N1 + N2) int32: entry b's queries, then its references;
-// frame (B, 2) float4: the box (lo; span), w = 0
+// frame (B, 2) float4: the box (lo; span), w = 0; flags (B, NC) zeroed,
+// set to 1 for each chunk of CHUNK references that holds a NaN coordinate
 __global__ void __launch_bounds__(256)
 nn_codes_kernel(const float* __restrict__ p1, const float* __restrict__ p2,
                 const float* __restrict__ ext, int* __restrict__ keys,
-                float4* __restrict__ frame, int B, int N1, int N2) {
+                float4* __restrict__ frame, int* __restrict__ flags, int B,
+                int N1, int N2) {
   __shared__ float s_lo[4], s_span[4];
   const int b = blockIdx.y;
   if (threadIdx.x < 3) {
@@ -276,17 +469,22 @@ nn_codes_kernel(const float* __restrict__ p1, const float* __restrict__ p2,
   const unsigned code = morton(p[0], p[1], p[2], lo, span, morton_bits(B));
   const unsigned u = ((unsigned)(2 * b + cloud) << (32 - seg_bits(B))) | code;
   keys[(size_t)b * (N1 + N2) + i] = (int)(u ^ 0x80000000u);
+  // the same value from every writer: no order matters
+  if (cloud && (isnan(p[0]) || isnan(p[1]) || isnan(p[2])))
+    flags[(size_t)b * ((N2 + CHUNK - 1) / CHUNK) + (i - N1) / CHUNK] = 1;
 }
 
 // skeys, order (B * (N1 + N2)) the sorted keys and the sort's order;
-// qrec (B, QP), rrec (B, RP) float4 records; rbox (B, RP / CH, 2) float4
-// (lo, hi; w the bits of the chunk's first and last key). QP and RP are
-// multiples of 32, so a warp lies in one entry and one cloud, and in the
-// references one warp is one chunk.
+// flags (B, NC) from nn_codes_kernel; qrec (B, QP), rrec (B, RP) float4
+// records, x, y, z NaN for a reference of a flagged chunk; rbox (B, RP /
+// CH, 2) float4 (lo, hi; w the bits of the chunk's first and last key).
+// QP and RP are multiples of 32, so a warp lies in one entry and one
+// cloud, and in the references one warp is one chunk.
 __global__ void __launch_bounds__(256)
 nn_pack_kernel(const float* __restrict__ p1, const float* __restrict__ p2,
                const int* __restrict__ skeys,
-               const long long* __restrict__ order, float4* __restrict__ qrec,
+               const long long* __restrict__ order,
+               const int* __restrict__ flags, float4* __restrict__ qrec,
                float4* __restrict__ rrec, float4* __restrict__ rbox, int N1,
                int N2, int QP, int RP, long long total) {
   const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
@@ -302,12 +500,14 @@ nn_pack_kernel(const float* __restrict__ p1, const float* __restrict__ p2,
   const int k = (int)(cloud ? src - N1 : src);
   const float* p = cloud ? p2 + ((size_t)b * N2 + k) * 3
                          : p1 + ((size_t)b * N1 + k) * 3;
-  const float4 rec =
+  float4 rec =
       make_float4(p[0], p[1], p[2], __int_as_float(j < n ? k : PAD_ORIG));
   if (!cloud) {
     qrec[(size_t)b * QP + j] = rec;
     return;
   }
+  if (flags[(size_t)b * ((N2 + CHUNK - 1) / CHUNK) + k / CHUNK])
+    rec.x = rec.y = rec.z = __int_as_float(0x7fc00000);  // PyTorch's NaN
   rrec[(size_t)b * RP + j] = rec;
   // a pad repeats the last key, so lane 31 holds the chunk's last
   const int key = skeys[at];
@@ -550,54 +750,78 @@ nn_pruned_kernel(const int* __restrict__ skeys,
 
 extern "C" {
 
-// idx (B, N1) int32, every entry written.
-int nearest_idx_forward(const float* p1, const float* p2, int* idx, int B,
-                        int N1, int N2, int device, void* stream) {
+// idx (B, N1) int32, every entry written. The references in S slices of
+// L (brute_plan): S = ceil(N2 / L), L a multiple of CHUNK or a power of
+// two from MIN_SLICE below it; part (B, N1, S, 2) float scratch, every
+// entry written, when S > 1, else null. N2 >= 1.
+int nearest_idx_forward(const float* p1, const float* p2, int* idx,
+                        float* part, int B, int N1, int N2, int L, int S,
+                        int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || N1 == 0) return (int)cudaGetLastError();
-  const dim3 grid((N1 + THREADS - 1) / THREADS, B);
-  nn_brute_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(p1, p2, idx, N1,
-                                                              N2);
+  const bool slice_ok = L % CHUNK == 0
+                        || (L >= MIN_SLICE && L < CHUNK && !(L & (L - 1)));
+  const int C1 = (N1 + QB - 1) / QB;
+  if (N2 < 1 || N2 > (1 << 30) || L < 1 || !slice_ok
+      || S != (N2 + L - 1) / L || S > 65535 || (S > 1) != (part != nullptr)
+      || (long long)B * C1 > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  nn_brute_kernel<<<dim3(B * C1, S), BT, 2 * min(L, CHUNK) * sizeof(float4),
+                    st>>>(p1, p2, idx, (float2*)part, N1, N2, L, C1);
+  if (S > 1) {
+    const long long BN1 = (long long)B * N1;
+    nn_merge_kernel<<<(unsigned)((BN1 * 32 + 255) / 256), 256, 0, st>>>(
+        (const float2*)part, idx, BN1, S, L < CHUNK ? CHUNK / L : 1);
+  }
   return (int)cudaGetLastError();
 }
 
-// The pruned scan's layout, into out[0..3] (host ints): queries per tile,
-// references per chunk, extent blocks per batch entry, a pad's original
-// index. The wrapper sizes its buffers from these.
+// The layout, into out[0..6] (host ints): the pruned scan's queries per
+// tile, references per chunk, extent blocks per batch entry and a pad's
+// original index; the brute force's queries per block, the NaN rule's
+// chunk and the fewest references a slice. The wrapper sizes its buffers
+// and plans its slices from these.
 int nearest_idx_layout(void* out) {
   int* o = (int*)out;
   o[0] = TQ;
   o[1] = CH;
   o[2] = EXT_BLOCKS;
   o[3] = PAD_ORIG;
+  o[4] = QB;
+  o[5] = CHUNK;
+  o[6] = MIN_SLICE;
   return 0;
 }
 
 // Prepass steps 1-2: ext (B, EXT_BLOCKS, 6) float scratch; keys
 // (B, N1 + N2) int32, every entry written; frame (B, 2, 4) float, each
-// entry's box (lo; span). N1, N2 >= 1.
+// entry's box (lo; span); flags (B, ceil(N2 / CHUNK)) int32, every entry
+// written: 1 for a chunk of references with a NaN coordinate. N1, N2 >= 1.
 int nearest_idx_keys(const float* p1, const float* p2, float* ext, int* keys,
-                     float* frame, int B, int N1, int N2, int device,
-                     void* stream) {
+                     float* frame, int* flags, int B, int N1, int N2,
+                     int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0) return (int)cudaGetLastError();
   if (B > (1 << 29) || N1 < 1 || N2 < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  nn_extent_kernel<<<dim3(EXT_BLOCKS, B), 256, 0, s>>>(p1, p2, ext, N1, N2);
+  nn_extent_kernel<<<dim3(EXT_BLOCKS, B), 256, 0, s>>>(p1, p2, ext, flags,
+                                                       N1, N2);
   nn_codes_kernel<<<dim3((N1 + N2 + 255) / 256, B), 256, 0, s>>>(
-      p1, p2, ext, keys, (float4*)frame, B, N1, N2);
+      p1, p2, ext, keys, (float4*)frame, flags, B, N1, N2);
   return (int)cudaGetLastError();
 }
 
 // Prepass step 4: skeys (B * (N1 + N2)) int32 and order int64, the
-// stable sort of the keys; qrec (B, C1 * TQ, 4) and rrec (B, C2 * CH, 4)
-// float; rbox (B, C2, 2, 4) float, with C1 = ceil(N1 / TQ), C2 =
-// ceil(N2 / CH).
+// stable sort of the keys; flags from the keys; qrec (B, C1 * TQ, 4) and
+// rrec (B, C2 * CH, 4) float; rbox (B, C2, 2, 4) float, with C1 =
+// ceil(N1 / TQ), C2 = ceil(N2 / CH).
 int nearest_idx_pack(const float* p1, const float* p2, const int* skeys,
-                     const void* order, float* qrec, float* rrec, float* rbox,
-                     int B, int N1, int N2, int device, void* stream) {
+                     const void* order, const int* flags, float* qrec,
+                     float* rrec, float* rbox, int B, int N1, int N2,
+                     int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0) return (int)cudaGetLastError();
@@ -605,8 +829,8 @@ int nearest_idx_pack(const float* p1, const float* p2, const int* skeys,
   const long long total = (long long)B * (QP + RP);
   nn_pack_kernel<<<(unsigned)((total + 255) / 256), 256, 0,
                    (cudaStream_t)stream>>>(
-      p1, p2, skeys, (const long long*)order, (float4*)qrec, (float4*)rrec,
-      (float4*)rbox, N1, N2, QP, RP, total);
+      p1, p2, skeys, (const long long*)order, flags, (float4*)qrec,
+      (float4*)rrec, (float4*)rbox, N1, N2, QP, RP, total);
   return (int)cudaGetLastError();
 }
 

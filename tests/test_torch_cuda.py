@@ -744,6 +744,115 @@ def test_nearest_idx_pruned_skips_chunks(cuda):
     assert 0 < int(scanned) * kn.TQ * kn.CH < 20_000 ** 2 // 5
 
 
+def _brute_scene(device, case):
+    """(queries, references) of one brute-force scene, float32 on
+    ``device``: lattice points (exact distances, exact ties) with NaN
+    coordinates where the case names them."""
+    g = torch.Generator(device).manual_seed(19)
+
+    def grid(*shape):
+        return torch.randint(0, 64, shape, device=device, generator=g,
+                             dtype=torch.int32).float() / 64.
+    if case == 'probe':
+        # the CPU probe of the NaN-chunk fault: 50 queries, 3,000
+        # references, a NaN coordinate at reference 1,500
+        p1, p2 = grid(1, 50, 3), grid(1, 3000, 3)
+        p2[0, 1500, 1] = float('nan')
+    elif case == 'nan_last_partial':
+        p1, p2 = grid(2, 700, 3), grid(2, 2600, 3)
+        p2[1, 2599, 0] = float('nan')
+        p2[0, 100, 2] = float('nan')
+    elif case == 'nonfinite':
+        p1, p2 = grid(1, 600, 3), grid(1, 5000, 3)
+        p1[0, :3, 0] = torch.tensor([float('nan'), float('inf'),
+                                     float('-inf')])
+        p2[0, 10:20, 1] = float('inf')
+        p2[0, 3000:3010, 2] = float('-inf')
+        p2[0, 4100, 0] = float('nan')
+    else:
+        # border ties: the same point at every slice border of 32, 256 and
+        # 1024 references below 4,100, and queries on it and a step off it
+        p1, p2 = grid(1, 1500, 3), grid(1, 4100, 3)
+        borders = torch.arange(32, 4100, 32, device=device)
+        point = p2[0, 31].clone()
+        p2[0, borders] = point
+        p2[0, borders - 1] = point
+        p1[0, :500] = point
+        p1[0, 500:1000] = point + torch.tensor([1. / 64, 0., 0.],
+                                               device=device)
+    return p1, p2
+
+
+@pytest.mark.parametrize('case', ['probe', 'nan_last_partial', 'nonfinite',
+                                  'border_ties'])
+@pytest.mark.parametrize('plan', ['host', 1, 32, 256, 1024, 2048])
+def test_nearest_idx_brute_plans(cuda, case, plan, monkeypatch):
+    """The brute-force kernel under the host's plan and with each kind of
+    slice forced (one slice, slices below a chunk, of a chunk and of two):
+    the plain version's indices, NaN chunks passed over and ties to the
+    lowest index across slice borders, one launch counted a call, two
+    launches bit-identical."""
+    p1, p2 = _brute_scene(cuda, case)
+    N2 = p2.shape[1]
+    if plan != 'host':
+        L = -(-N2 // 1024) * 1024 if plan == 1 else plan
+        monkeypatch.setattr(kn, 'brute_plan',
+                            lambda *a: (-(-N2 // L), L))
+    ref = kn.nearest_idx_plain(p1, p2)
+    n = kn.nearest_idx.launches
+    out = kn.nearest_idx(p1, p2)
+    again = kn.nearest_idx(p1, p2)
+    assert kn.nearest_idx.launches == n + 2
+    assert torch.equal(out, ref) and torch.equal(again, out)
+    if case == 'probe':
+        assert not bool(((out >= 1024) & (out < 2048)).any())
+    if case == 'border_ties':
+        assert bool((out[0, :500] == 31).all())
+
+
+@pytest.mark.parametrize('case', ['probe', 'nan_last_partial', 'nonfinite'])
+def test_nearest_idx_pruned_nan_chunks(cuda, case):
+    """The pruned scan passes over the references of a chunk of 1024 that
+    holds a NaN coordinate, as its plain version does; its prepass on the
+    card gives the plain prepass's keys, order, records and frame bit for
+    bit and its chunk boxes by value (NaN where a box holds only NaN)."""
+    p1, p2 = _brute_scene(cuda, case)
+    n = kn.nearest_idx_pruned.launches
+    out = kn.nearest_idx_pruned(p1, p2)
+    again = kn.nearest_idx_pruned(p1, p2)
+    assert kn.nearest_idx_pruned.launches == n + 2
+    assert torch.equal(out, kn.nearest_idx_plain(p1, p2))
+    assert torch.equal(again, out)
+    got, ref = kn.prepass(p1, p2), kn._prepass_plain(p1, p2)
+    for a, b in zip(got[:4] + got[5:], ref[:4] + ref[5:]):
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point()
+                           else a, b.view(torch.int32)
+                           if b.is_floating_point() else b)
+    box, rbox = got[4][..., :3], ref[4][..., :3]
+    assert torch.equal(box.isnan(), rbox.isnan())
+    assert torch.equal(box.nan_to_num(0.), rbox.nan_to_num(0.))
+
+
+@pytest.mark.parametrize('shape', [(1, 10_000, 10_000), (1, 2048, 2048),
+                                   (2, 3001, 20_011), 'fill'])
+def test_nearest_idx_brute_sizes(cuda, shape):
+    """The brute-force kernel at the slice's sizes and at one the query
+    tiles fill alone (one slice): the plain version's indices, no host
+    sync, one launch counted a call."""
+    sms = kn._sms(torch.cuda.current_device())
+    if shape == 'fill':
+        shape = (1, 2 * sms * kn.QB, 1500)
+    B, N1, N2 = shape
+    p1, p2 = _clouds(cuda, 23, (B, N1, 3), (B, N2, 3))
+    S, _ = kn.brute_plan(B, N1, N2, sms)
+    assert (S == 1) == (N2 == 1500)
+    out = kn.nearest_idx(p1, p2)
+    assert torch.equal(out, kn.nearest_idx_plain(p1, p2))
+    n = kn.nearest_idx.launches
+    assert _sync_count(lambda: kn.nearest_idx(p1, p2)) == 0
+    assert kn.nearest_idx.launches == n + 1
+
+
 def _grid_mesh_points(device):
     """The grid mesh of ``tests/test_metrics.py`` with points above its
     vertices and edge midpoints (exact ties, summed codes above 6)."""

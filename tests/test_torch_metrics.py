@@ -154,7 +154,8 @@ def _scan_plain(skeys, qrec, rrec, rbox, frame, n1, n2):
     skips nothing more) or the chunk's keys (its box's w) all lie outside
     the tile's :func:`_key_range` (where the kernel's walk ends), and
     keeps the
-    smallest (distance, original index). Returns (indices in the original
+    smallest (distance, original index), a NaN distance never (the
+    kernel takes ``d <= best`` only). Returns (indices in the original
     order, chunks scanned, chunks the key range skipped)."""
     C1, C2 = qrec.shape[1] // kn.TQ, rbox.shape[1]
     q = qrec[0].reshape(C1, kn.TQ, 4)
@@ -180,7 +181,7 @@ def _scan_plain(skeys, qrec, rrec, rbox, frame, n1, n2):
         need = (~(gap > best)).any(dim=1) & ~out_of_range
         beyond += int(out_of_range.sum())
         d = kn._sq_dist(pts[:, :, None], refs[c][:, None, :, :3])
-        dmin = d.amin(dim=-1)
+        dmin = kn._nan_amin(d, -1)
         o = torch.where(d == dmin[..., None], rorig[c][:, None],
                         torch.iinfo(torch.int64).max).amin(dim=-1)
         take = need[:, None] & ((dmin < best) | ((dmin == best) & (o < bo)))
@@ -236,6 +237,34 @@ def test_pruned_prepass_covers_every_winner(kind):
     assert torch.equal(scan, brute.to(torch.int32))
     assert scanned < tiles.shape[0] * rbox.shape[1]
     assert beyond > 0
+
+
+@pytest.mark.parametrize('where', ['first', 'middle', 'last', 'every'])
+def test_pruned_scan_passes_nan_chunks_over(where):
+    """A NaN coordinate in a chunk of 1024 references keeps every reference
+    of the chunk from being taken, as in the XLA scan: the prepass gives
+    their records NaN coordinates (and only theirs), its boxes leave them
+    out, and the scan over them gives the XLA scan's indices."""
+    rng = np.random.default_rng(12)
+    n1, n2 = 700, 5000
+    p1 = rng.random((1, n1, 3)).astype(np.float32)
+    p2 = rng.random((1, n2, 3)).astype(np.float32)
+    rows = {'first': [3], 'middle': [2500], 'last': [4999],
+            'every': [0, 1500, 2047, 3072, 4500]}[where]
+    p2[0, rows, 1] = np.nan
+    t1, t2 = _t(p1, p2)
+    ref = np.asarray(_nearest_idx(*_j(p1, p2)))
+    np.testing.assert_array_equal(kn.nearest_idx_plain(t1, t2).numpy(), ref)
+    skeys, order, qrec, rrec, rbox, frame = kn.prepass(t1, t2)
+    orig = rrec[0, :n2, 3].contiguous().view(torch.int32).long()
+    flagged = torch.zeros(n2 // 1024 + 1, dtype=torch.bool)
+    flagged[torch.tensor(rows) // 1024] = True
+    assert torch.equal(rrec[0, :n2, :3].isnan().all(dim=1),
+                       flagged[orig // 1024])
+    assert bool(torch.isfinite(rbox[..., :3]).all())
+    assert bool(torch.isfinite(frame).all())
+    scan, _, _ = _scan_plain(skeys, qrec, rrec, rbox, frame, n1, n2)
+    np.testing.assert_array_equal(scan.numpy(), ref[0])
 
 
 # ------------------------------------------------- sided, chamfer, f-score

@@ -270,14 +270,16 @@ def test_ctypes_signatures_match_sources():
 
 
 def test_nn_layout_matches_source():
-    """The pruned scan's layout in ``nn_distance.py`` (which sizes the
-    buffers and forms the plain prepass) is the one its CUDA source
-    declares, as loading the library also checks on the card."""
+    """The NN layout in ``nn_distance.py`` (the pruned scan's, which sizes
+    the buffers and forms the plain prepass, and the brute force's, which
+    its host plan uses) is the one its CUDA source declares, as loading
+    the library also checks on the card."""
     import re
     from kaolin_tpu_torch.kernels import nn_distance
     text = (ROOT / 'kaolin_tpu_torch' / 'csrc' / 'nn_distance.cu').read_text()
     consts = {}
     for name, expr in re.findall(r'constexpr int (\w+) = ([^;]+);', text):
         consts[name] = eval(expr, {}, dict(consts))
-    assert tuple(consts[k] for k in ('TQ', 'CH', 'EXT_BLOCKS', 'PAD_ORIG')) \
+    assert tuple(consts[k] for k in ('TQ', 'CH', 'EXT_BLOCKS', 'PAD_ORIG',
+                                     'QB', 'CHUNK', 'MIN_SLICE')) \
         == nn_distance._LAYOUT
