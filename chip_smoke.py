@@ -6,7 +6,8 @@ Run from the root of the repository, on a machine with a CUDA card and
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``kaolin_tpu_torch/csrc/``, holds
+It builds the port's host library (``csrc/core.cpp``, ``g++``) and its
+CUDA kernels from ``kaolin_tpu_torch/csrc/``, holds
 each kernel against its plain PyTorch version on the card at the shapes of
 the paths below, and drives seven paths, checking that every kernel of each
 ran in it:
@@ -106,6 +107,45 @@ the F-score's, a NaN coordinate in a reference of the first, a middle
 and the last chunk of 1024, and a NaN, an inf and a -inf query): no
 reference of a chunk that holds a NaN may be taken, as in the XLA scan;
 the pruned prepass on the card against its plain version on both.
+
+Then it drives the modules with no TPU kernel (``module_phases``), each on
+the card at full width, checked against the CPU (bool, integer and octree
+outputs exactly; floats to the tolerances named beside them: SG_TOL,
+SG_GRAD_TOL, MOD_TOL, MOD_GRAD_TOL) and timed with CUDA events and
+``torch.profiler`` (device time, CUDA activities and host syncs a call,
+peak memory, a bound where one means something), each with the launch
+counters at 0 and read after:
+
+- SG lighting: ``unbatched_reduced_sg_inner_product`` at ``bench_sg.py``'s
+  100,000 queries x 512 lights (its seeded inputs), the sum's forward and
+  its gradient to all six inputs, timed as
+  ``sg_reduced_inner_100000x512_fwd`` and ``..._fwdbwd``; the first 2,000
+  queries' values and gradients against the CPU at float64;
+- mesh -> SPC -> convolution -> trace: config 2's mesh (icosphere
+  subdivision 5, batch 8, scaled 0.9) through ``mesh_to_spc`` at level 8
+  (the host library), equal to the CPU's octrees; on the first octree a
+  27-offset ``Conv3d`` (32 -> 32, jump 0), an 8-offset ``Conv3d`` (jump 1)
+  and an 8-offset ``ConvTranspose3d`` (jump 1), forward and backward to
+  the features and the weights, against the CPU; then ``unbatched_raytrace``
+  of that octree with config 5's rays (the traversal kernel, the one
+  launch of this path, one host sync a trace), equal to the CPU's trace,
+  its first hits within two voxel diagonals of the sphere of radius 0.9
+  and 0.9 of them within one;
+- voxel grids: config 2's mesh at batch 8 through
+  ``trianglemeshes_to_voxelgrids`` at 128^3, ``fill``, ``extract_surface``
+  (both modes), ``downsample`` by 2, ``extract_odms``, ``project_odms``,
+  ``iou`` against the filled grid, marching cubes of a filled grid,
+  ``subdivide_trianglemesh`` once (81,920 faces), and config 3's
+  100,000-point cloud through ``pointclouds_to_voxelgrids`` at 128 and
+  ``unbatched_pointcloud_to_spc`` at level 8 with 3 feature channels:
+  equal to the CPU's;
+- GCN: ``GraphConv`` 192 -> 192 over config 2's 10,242 vertices
+  (``adjacency_matrix``), batch 8, forward and backward, with the sparse
+  and the dense adjacency, against the CPU's sparse route;
+- small ops: ``coords`` against the CPU, ``random_spc_octrees`` (batch 4,
+  level 8: valid and deterministic), seeded ``random_tensor``, and the
+  host library's Morton and octree entry points against their numpy
+  versions at config 5's 200,000 points.
 
 The grid-sample backward's texture gradient must be the same bits at two
 launches (the second with the forward's interleaved copy) in every case,
@@ -3101,6 +3141,550 @@ def check_pack_ops_against_cpu(hits):
            'the primary rays on the card disagree with the CPU')
 
 
+# ---------------------------------------------------------------------------
+# The modules with no TPU kernel (render/lighting/sg.py, ops/spc/convolution,
+# the native host library, the voxel grids, the GCN, subdivision and the
+# conversions): each phase runs the port's functions on the card at full
+# width, checks the card against the CPU, and times them (module_times).
+# ---------------------------------------------------------------------------
+
+# bench_sg.py's size: SG_QUERIES queries x SG_LIGHTS lights in chunks of
+# SG_CHUNK; the first SG_CHECK queries are held against the CPU at float64
+SG_QUERIES, SG_LIGHTS, SG_CHUNK, SG_CHECK = 100_000, 512, 512, 2000
+# float operations per (query, light) pair of the SG inner product: the
+# lobe sum (3 adds), its norm (3 mul, 2 add, sqrt), the sharpness sum and
+# the exponent (2), exp, the amplitudes (3 mul), expo (3 mul), -2 dm, exp,
+# 1 - exp, the 2 pi, other and 1 / dm products (3 x 3), the sum over the
+# lights (3); the backward is counted as twice the forward's
+OPS_SG_PAIR = 3 + 6 + 2 + 1 + 3 + 3 + 3 + 9 + 3
+# card vs CPU: the SG values within SG_TOL of the largest |value|, the
+# gradients within SG_GRAD_TOL of their largest |entry| (float32 on the
+# card against float64 on the CPU; the gradients to the lights sum
+# SG_CHECK queries' terms)
+SG_TOL, SG_GRAD_TOL = 1e-5, 1e-4
+# config 2's mesh (icosphere subdivision 5, batch 8) scaled by MESH_SCALE
+# into [-1, 1]: mesh_to_spc at SPC_LEVEL, the convolutions' CONV_CH
+# channels on its first octree, voxel grids at VOX_RES
+MESH_BATCH, MESH_SUBDIV, MESH_SCALE = 8, 5, 0.9
+SPC_LEVEL, CONV_CH, VOX_RES = 8, 32, 128
+# the convolutions and the GCN, card vs CPU (float32 both, other orders of
+# the matrix products' sums): values within MOD_TOL of the largest
+# |value|, gradients within MOD_GRAD_TOL of their largest |entry|
+MOD_TOL, MOD_GRAD_TOL = 1e-5, 1e-4
+# Pixel2Mesh's hidden width over config 2's 10,242 vertices
+GCN_CH = 192
+# config 3's cloud (bench_suite.py:191) and config 5's points
+C3_N = 100_000
+MOD_ITERS = 5
+
+
+def _rel_err(out, ref):
+    ref = ref.detach().double()
+    return float((out.detach().double().cpu() - ref.cpu()).abs().max()
+                 / ref.abs().max().clamp(min=1e-300).cpu())
+
+
+def module_times(label, fn, iters=MOD_ITERS, bound_ms=None, bound_by=None):
+    """A module's call on the card: ms by CUDA events, the card's own time,
+    CUDA activities and host syncs a call, the peak memory it adds (MB),
+    and its bound where one is given."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    out = dict(ms=time_ms(fn, iters, warmup=False),
+               device_ms=device_ms(f'[modules] {label}', fn, iters),
+               launches_per_call=launches_per_call(f'[modules] {label}', fn,
+                                                   2),
+               host_syncs=host_syncs(fn), peak_mb=round(peak, 3),
+               bound_ms=bound_ms, bound_by=bound_by)
+    log(f'[modules] time {label}: ' + json.dumps(out))
+    return out
+
+
+def host_ms(fn, reps=3):
+    """The best of ``reps`` host-clock times of ``fn`` (host work)."""
+    best = math.inf
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def no_kernel_path(label, fn):
+    """Runs ``fn`` with the launch counters at 0 and checks that it
+    launched none of the ported kernels (these modules have none);
+    returns what ``fn`` returns."""
+    reset_counters()
+    out = fn()
+    launches = read_counters(f'{label} path')
+    expect(sum(launches.values()) == 0,
+           f'{label}: launched a kernel of the TPU table')
+    return out
+
+
+def sg_inputs(device):
+    """bench_sg.py's inputs, drawn in its order from default_rng(0), as
+    float32 on ``device``: (amplitude, direction, sharpness) of the
+    queries, then of the lights."""
+    rng = np.random.default_rng(SEED)
+
+    def unit(n):
+        v = rng.normal(size=(n, 3))
+        return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+    arrays = (rng.uniform(0.5, 1.5, (SG_QUERIES, 3)), unit(SG_QUERIES),
+              rng.uniform(1., 8., (SG_QUERIES,)),
+              rng.uniform(0.5, 1.5, (SG_LIGHTS, 3)), unit(SG_LIGHTS),
+              rng.uniform(1., 8., (SG_LIGHTS,)))
+    return [torch.tensor(a, dtype=torch.float32, device=device)
+            for a in arrays]
+
+
+def sg_phase():
+    """``unbatched_reduced_sg_inner_product`` at bench_sg.py's size: the
+    sum's forward and its gradient to all six inputs, timed; the first
+    SG_CHECK queries' values and gradients against the CPU at float64."""
+    fn = kt.render.lighting.unbatched_reduced_sg_inner_product
+    inputs = sg_inputs('cuda')
+    leaves = [t.clone().requires_grad_() for t in inputs]
+
+    def fwd():
+        return fn(*inputs, chunk=SG_CHUNK).sum()
+
+    def fwdbwd():
+        return torch.autograd.grad(fn(*leaves, chunk=SG_CHUNK).sum(), leaves)
+
+    def check():
+        out = fn(*inputs, chunk=SG_CHUNK)
+        grads = fwdbwd()
+        expect(out.shape == (SG_QUERIES, 3) and bool(torch.isfinite(out).all())
+               and all(bool(torch.isfinite(g).all()) for g in grads),
+               'SG: values or gradients not finite')
+
+        def sub(device, dtype):
+            xs = [(t[:SG_CHECK] if i < 3 else t).to(device, dtype)
+                  .requires_grad_() for i, t in enumerate(inputs)]
+            y = fn(*xs, chunk=SG_CHUNK)
+            return (y,) + torch.autograd.grad(y.sum(), xs)
+
+        card, cpu = sub('cuda', torch.float32), sub('cpu', torch.float64)
+        errs = [_rel_err(out[:SG_CHECK], cpu[0])] + [
+            _rel_err(a, b) for a, b in zip(card, cpu)]
+        log(f'[sg] card vs CPU (float64), first {SG_CHECK} queries x '
+            f'{SG_LIGHTS} lights: value error {errs[0]:.3e} in the full '
+            f'call, {errs[1]:.3e} in a call on those queries (tolerance '
+            f'{SG_TOL}), gradient errors {[f"{e:.3e}" for e in errs[2:]]} '
+            f'(tolerance {SG_GRAD_TOL}), of the largest |entry|')
+        expect(max(errs[:2]) <= SG_TOL and max(errs[2:]) <= SG_GRAD_TOL,
+               'SG: the card disagrees with the CPU')
+
+    no_kernel_path('[sg]', check)
+    ops = SG_QUERIES * SG_LIGHTS * OPS_SG_PAIR
+    times = {'fwd': module_times('sg fwd', fwd, bound_ms=ops / PEAK_F32 * 1e3,
+                                 bound_by='operations'),
+             'fwdbwd': module_times('sg fwdbwd', fwdbwd,
+                                    bound_ms=3 * ops / PEAK_F32 * 1e3,
+                                    bound_by='operations')}
+    for t in times.values():
+        t['pairs_per_s'] = SG_QUERIES * SG_LIGHTS / (t['ms'] * 1e-3)
+    return times
+
+
+def config2_mesh(device):
+    """Config 2's mesh: the unit icosphere of subdivision MESH_SUBDIV
+    (20,480 faces) tiled MESH_BATCH times, as bench_suite.py tiles it,
+    scaled by MESH_SCALE."""
+    v, f = kt.utils.interop.icosphere(MESH_SUBDIV)
+    verts = np.tile(v[None] * MESH_SCALE, (MESH_BATCH, 1, 1))
+    return (torch.tensor(verts, dtype=torch.float32, device=device),
+            torch.tensor(f, dtype=torch.int64, device=device))
+
+
+def _kernel_vectors(lo, hi):
+    r = np.arange(lo, hi + 1)
+    return np.stack(np.meshgrid(r, r, r, indexing='ij'),
+                    -1).reshape(-1, 3).astype(np.int16)
+
+
+def _conv_layers(device):
+    gen = torch.Generator().manual_seed(SEED)
+    k27, k8 = _kernel_vectors(-1, 1), _kernel_vectors(0, 1)
+    return (kt.ops.spc.Conv3d(CONV_CH, CONV_CH, k27, 0, generator=gen,
+                              device=device),
+            kt.ops.spc.Conv3d(CONV_CH, CONV_CH, k8, 1, generator=gen,
+                              device=device),
+            kt.ops.spc.ConvTranspose3d(CONV_CH, CONV_CH, k8, 1, generator=gen,
+                                       device=device))
+
+
+def conv_calls(spc, layers, x8, x7):
+    """The three convolutions' forward and backward on one octree: (name,
+    fn) pairs; fn returns (output, gradients to the features, the weight
+    and the bias)."""
+    octree, ph, pyr, exsum = spc
+    calls = []
+    for name, layer, level, x in (('conv3d 27, jump 0', layers[0],
+                                   SPC_LEVEL, x8),
+                                  ('conv3d 8, jump 1', layers[1], SPC_LEVEL,
+                                   x8),
+                                  ('conv_transpose3d 8, jump 1', layers[2],
+                                   SPC_LEVEL - 1, x7)):
+        def run(layer=layer, level=level, x=x):
+            leaf = x.detach().requires_grad_()
+            y, _ = layer(octree, ph, level, pyr, exsum, leaf)
+            return (y,) + torch.autograd.grad(
+                (y * y).sum() * 0.5, [leaf, layer.weight, layer.bias])
+        calls.append((name, run))
+    return calls
+
+
+def spc_of(octree, lengths):
+    _, pyr, exsum = kt.ops.spc.scan_octrees(octree, lengths)
+    return (octree, kt.ops.spc.generate_points(octree, pyr, exsum), pyr,
+            exsum)
+
+
+def spc_conv_trace_phase(rays):
+    """Config 2's mesh -> ``mesh_to_spc`` at SPC_LEVEL (the host library)
+    -> on the first octree the three convolutions, forward and backward
+    -> ``unbatched_raytrace`` of that octree with config 5's rays. The
+    traversal is the one kernel of the TPU table on this path."""
+    verts, faces = config2_mesh('cuda')
+    reset_counters()
+    spc = kt.ops.conversions.mesh_to_spc(verts, faces, SPC_LEVEL)
+    octree = spc.octrees[:int(spc.lengths[0])]
+    one = spc_of(octree, spc.lengths[:1])
+    _, ph, pyr, exsum = one
+    n8, n7 = int(pyr[0, 0, SPC_LEVEL]), int(pyr[0, 0, SPC_LEVEL - 1])
+    rng = np.random.default_rng(SEED)
+    x8 = torch.tensor(rng.normal(size=(n8, CONV_CH)), dtype=torch.float32,
+                      device='cuda')
+    x7 = torch.tensor(rng.normal(size=(n7, CONV_CH)), dtype=torch.float32,
+                      device='cuda')
+    layers = _conv_layers('cuda')
+    calls = conv_calls(one, layers, x8, x7)
+    outs = [fn() for _, fn in calls]
+    o, d = rays
+    ridx, pidx, depth = kt.render.spc.unbatched_raytrace(
+        octree, ph, pyr[0], exsum, o, d, SPC_LEVEL)
+    launches = read_counters('mesh -> spc -> conv -> trace path')
+    expect(launches['traverse'] == 1 and sum(launches.values()) == 1,
+           'mesh -> spc -> trace: expected one traversal and no other kernel')
+
+    # the octrees: one per (equal) mesh, each equal to the CPU's
+    cpu_octree = kt.ops.conversions.unbatched_mesh_to_spc(
+        verts[0].cpu(), faces.cpu(), SPC_LEVEL)
+    lengths = [int(n) for n in spc.lengths]
+    expect(spc.octrees.device.type == 'cuda' and len(set(lengths)) == 1
+           and torch.equal(spc.octrees.cpu(), cpu_octree.repeat(MESH_BATCH)),
+           'mesh_to_spc: the octrees differ from the CPU\'s')
+    log(f'[spc] mesh_to_spc at level {SPC_LEVEL}: {MESH_BATCH} octrees of '
+        f'{lengths[0]} bytes, levels {pyr[0, 0, :SPC_LEVEL + 1].tolist()}, '
+        'equal to the CPU\'s')
+    # the convolutions against the CPU (float32), every output and gradient
+    cpu_spc = spc_of(cpu_octree, spc.lengths[:1])
+    cpu_layers = _conv_layers('cpu')
+    for cl, layer in zip(cpu_layers, layers):
+        cl.load_state_dict({k: v.cpu() for k, v in layer.state_dict().items()})
+    cpu_outs = [fn() for _, fn in conv_calls(cpu_spc, cpu_layers, x8.cpu(),
+                                             x7.cpu())]
+    for (name, _), card, cpu in zip(calls, outs, cpu_outs):
+        errs = [_rel_err(a, b) for a, b in zip(card, cpu)]
+        log(f'[spc] card vs CPU, {name} ({card[0].shape[0]} outputs, '
+            f'{CONV_CH} -> {CONV_CH}): output error {errs[0]:.3e} (tolerance '
+            f'{MOD_TOL}), gradient errors {[f"{e:.3e}" for e in errs[1:]]} '
+            f'(tolerance {MOD_GRAD_TOL}), of the largest |entry|')
+        expect(errs[0] <= MOD_TOL and max(errs[1:]) <= MOD_GRAD_TOL,
+               f'{name}: the card disagrees with the CPU')
+    # the trace: against the CPU's on the same rays, and the sphere
+    c_ridx, c_pidx, c_depth = kt.render.spc.unbatched_raytrace(
+        cpu_spc[0], cpu_spc[1], cpu_spc[2][0], cpu_spc[3], o.cpu(), d.cpu(),
+        SPC_LEVEL)
+    same = (ridx.shape == c_ridx.shape and torch.equal(ridx.cpu(), c_ridx)
+            and torch.equal(pidx.cpu(), c_pidx))
+    depth_err = float((depth.cpu() - c_depth).abs().max()) if same else None
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore', DeprecationWarning)
+        first = kt.render.spc.mark_first_hit(ridx)
+    r = ridx[first].long()
+    p = o.double()[r] + depth[first, 0].double()[:, None] * d.double()[r]
+    diag = math.sqrt(3.) * 2. / 2 ** SPC_LEVEL
+    off = (p.norm(dim=-1) - MESH_SCALE).abs() / diag
+    within = float((off <= 1.).float().mean())
+    log(f'[spc] trace of the mesh\'s octree, {o.shape[0]} rays: '
+        f'{ridx.shape[0]} hits, {r.shape[0]} rays hit; card equal to the '
+        f'CPU {same} (largest depth difference {depth_err}); first hits: '
+        f'{within:.4f} within one voxel diagonal ({diag:.5f}) of the sphere '
+        f'of radius {MESH_SCALE}, the farthest {float(off.max()):.3f} '
+        'diagonals')
+    expect(same and depth_err <= 1e-5 and r.shape[0] > 0
+           and float(off.max()) <= 2. and within >= 0.9,
+           'mesh -> spc trace: hits disagree with the CPU or the sphere')
+
+    times = {'mesh_to_spc': dict(
+        host_ms=host_ms(lambda: kt.ops.conversions.mesh_to_spc(
+            verts, faces, SPC_LEVEL)), octree_bytes=lengths[0])}
+    for name, fn in calls:
+        times[name] = module_times(f'{name}, fwd+bwd', fn)
+
+    def trace():
+        kt.render.spc.unbatched_raytrace(octree, ph, pyr[0], exsum, o, d,
+                                         SPC_LEVEL)
+
+    times['trace'] = module_times('trace of the mesh\'s octree', trace)
+    expect(times['trace']['host_syncs'] == 1,
+           'mesh -> spc trace: expected one host sync a trace')
+    return times, launches
+
+
+def _bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def voxel_phase():
+    """Config 2's mesh at batch 8 -> ``trianglemeshes_to_voxelgrids`` at
+    VOX_RES -> ``fill`` -> ``extract_surface`` (both modes) ->
+    ``downsample`` by 2 -> ``extract_odms`` -> ``project_odms`` -> ``iou``
+    against the filled grid; marching cubes of the filled grids;
+    ``subdivide_trianglemesh`` once; config 3's cloud through
+    ``pointclouds_to_voxelgrids`` and ``unbatched_pointcloud_to_spc``.
+    Each on the card, batch entry 0 against the CPU."""
+    verts, faces = config2_mesh('cuda')
+    cv = kt.ops.conversions
+    vx = kt.ops.voxelgrid
+    rng = np.random.default_rng(SEED)
+    cloud = rng.random((1, C3_N, 3)).astype(np.float32)
+    feats = rng.normal(size=(C3_N, 3)).astype(np.float32)
+
+    def pipeline(v, f, pc, ft):
+        vg = cv.trianglemeshes_to_voxelgrids(v, f, VOX_RES)
+        filled = vx.fill(vg)
+        odms = vx.extract_odms(filled)
+        proj = vx.project_odms(odms)
+        mc_v, mc_f = cv.voxelgrids_to_trianglemeshes(filled[:1])
+        sub_v, sub_f = kt.ops.mesh.subdivide_trianglemesh(v, f, 1)
+        pspc = cv.unbatched_pointcloud_to_spc(pc[0] * 2. - 1., SPC_LEVEL, ft)
+        return dict(vg=vg, filled=filled,
+                    wide=vx.extract_surface(filled, 'wide'),
+                    thin=vx.extract_surface(filled, 'thin'),
+                    down=vx.downsample(filled, 2), odms=odms, proj=proj,
+                    iou=kt.metrics.voxelgrid.iou(proj, filled),
+                    mc_v=mc_v[0], mc_f=mc_f[0], sub_v=sub_v, sub_f=sub_f,
+                    pvg=cv.pointclouds_to_voxelgrids(pc, VOX_RES),
+                    spc_octree=pspc.octrees, spc_feats=pspc.features)
+
+    card = no_kernel_path('[voxel]', lambda: pipeline(
+        verts, faces, torch.tensor(cloud, device='cuda'),
+        torch.tensor(feats, device='cuda')))
+    cpu = pipeline(verts[:1].cpu(), faces.cpu(), torch.tensor(cloud),
+                   torch.tensor(feats))
+    for key in ('vg', 'filled', 'wide', 'thin', 'down', 'odms', 'proj',
+                'iou'):
+        a = card[key]
+        expect(all(torch.equal(a[b], a[0]) for b in range(1, a.shape[0])),
+               f'{key}: the batch\'s equal meshes differ')
+    exact = {k: bool(torch.equal(card[k][:1].cpu(), cpu[k])) for k in (
+        'vg', 'filled', 'wide', 'thin', 'down', 'odms', 'proj', 'iou',
+        'pvg')}
+    exact.update({k: bool(torch.equal(card[k].cpu(), cpu[k])) for k in (
+        'mc_v', 'mc_f', 'sub_f', 'spc_octree')})
+    sub_err = _rel_err(card['sub_v'][:1], cpu['sub_v'])
+    feat_err = float((card['spc_feats'].cpu().double()
+                      - cpu['spc_feats'].double()).abs().max())
+    log(f'[voxel] card vs CPU, exact: {json.dumps(exact)}; subdivision '
+        f'vertices {sub_err:.3e} of the largest (tolerance {MOD_TOL}), '
+        f'SPC features {feat_err:.3e} (tolerance 1e-6)')
+    expect(all(exact.values()) and sub_err <= MOD_TOL and feat_err <= 1e-6,
+           'voxel grids: the card disagrees with the CPU')
+    filled = card['filled']
+    occupied = float(filled.float().mean())
+    log(f'[voxel] {MESH_BATCH} grids of {VOX_RES}^3: surface '
+        f'{int(card["vg"][0].sum())} voxels, filled {occupied:.4f} of the '
+        f'grid (a ball fills 0.5236), wide / thin shells '
+        f'{int(card["wide"][0].sum())} / {int(card["thin"][0].sum())}, iou '
+        f'of the carved hull {float(card["iou"][0]):.4f}; marching cubes '
+        f'{card["mc_v"].shape[0]} vertices, {card["mc_f"].shape[0]} faces; '
+        f'subdivision {card["sub_f"].shape[0]} faces; the cloud: '
+        f'{int(card["pvg"].sum())} voxels, an octree of '
+        f'{card["spc_octree"].shape[0]} bytes')
+    expect(0.45 < occupied < 0.56
+           and card['sub_f'].shape[0] == 4 * faces.shape[0]
+           and bool((card['iou'] > 0.5).all()), 'voxel grids: implausible '
+           'fill, subdivision or hull')
+
+    def bound(nbytes):
+        return nbytes / PEAK_BYTES * 1e3
+
+    vg, odms = card['vg'], card['odms']
+    cl = torch.tensor(cloud, device='cuda')
+    ft = torch.tensor(feats, device='cuda')
+    passes = (
+        ('trianglemeshes_to_voxelgrids', lambda: cv.trianglemeshes_to_voxelgrids(
+            verts, faces, VOX_RES), _bytes(verts, faces, vg)),
+        ('fill', lambda: vx.fill(vg), _bytes(vg, filled)),
+        ('extract_surface wide', lambda: vx.extract_surface(filled, 'wide'),
+         2 * _bytes(filled)),
+        ('extract_surface thin', lambda: vx.extract_surface(filled, 'thin'),
+         2 * _bytes(filled)),
+        ('downsample 2', lambda: vx.downsample(filled, 2),
+         _bytes(filled, card['down'])),
+        ('extract_odms', lambda: vx.extract_odms(filled),
+         _bytes(filled, odms)),
+        ('project_odms', lambda: vx.project_odms(odms),
+         _bytes(odms, card['proj'])),
+        ('iou', lambda: kt.metrics.voxelgrid.iou(card['proj'], filled),
+         2 * _bytes(filled)),
+        ('voxelgrids_to_trianglemeshes mc', lambda: cv.
+         voxelgrids_to_trianglemeshes(filled[:1]),
+         _bytes(filled[:1], card['mc_v'], card['mc_f'])),
+        ('subdivide_trianglemesh', lambda: kt.ops.mesh.subdivide_trianglemesh(
+            verts, faces, 1), _bytes(verts, faces, card['sub_v'],
+                                     card['sub_f'])),
+        ('pointclouds_to_voxelgrids', lambda: cv.pointclouds_to_voxelgrids(
+            cl, VOX_RES), _bytes(cl, card['pvg'])),
+        ('unbatched_pointcloud_to_spc', lambda: cv.unbatched_pointcloud_to_spc(
+            cl[0] * 2. - 1., SPC_LEVEL, ft), None))
+    times = {}
+    for name, fn, nbytes in passes:
+        times[name] = module_times(
+            name, fn, bound_ms=None if nbytes is None else bound(nbytes),
+            bound_by=None if nbytes is None else 'bytes')
+    return times
+
+
+def gcn_phase():
+    """``GraphConv`` (GCN_CH -> GCN_CH) over config 2's icosphere (the
+    port's ``adjacency_matrix``), batch MESH_BATCH, forward and backward,
+    with the sparse and the dense adjacency; both against the CPU's
+    sparse route."""
+    _, faces = config2_mesh('cuda')
+    nv = int(faces.max()) + 1
+    idx, val = kt.ops.mesh.adjacency_matrix(nv, faces, sparse=True)
+    adjs = {'sparse': torch.sparse_coo_tensor(idx, val, (nv, nv)),
+            'dense': kt.ops.mesh.adjacency_matrix(nv, faces)}
+    layer = kt.ops.gcn.GraphConv(GCN_CH, GCN_CH, generator=torch.Generator()
+                                 .manual_seed(SEED), device='cuda')
+    x = torch.tensor(np.random.default_rng(SEED).normal(
+        size=(MESH_BATCH, nv, GCN_CH)), dtype=torch.float32, device='cuda')
+
+    def call(layer, adj, x):
+        leaf = x.detach().requires_grad_()
+        y = layer(leaf, adj)
+        return (y,) + torch.autograd.grad((y * y).sum() * 0.5,
+                                          [leaf, *layer.parameters()])
+
+    cpu_layer = kt.ops.gcn.GraphConv(GCN_CH, GCN_CH, device='cpu')
+    cpu_layer.load_state_dict({k: v.cpu() for k, v in
+                               layer.state_dict().items()})
+    cpu = call(cpu_layer, adjs['sparse'].cpu(), x.cpu())
+    times = {}
+    for name, adj in adjs.items():
+        card = no_kernel_path(f'[gcn] {name}', lambda: call(layer, adj, x))
+        errs = [_rel_err(a, b) for a, b in zip(card, cpu)]
+        log(f'[gcn] card ({name}) vs CPU (sparse), {nv} vertices, batch '
+            f'{MESH_BATCH}, {GCN_CH} -> {GCN_CH}: output error '
+            f'{errs[0]:.3e} (tolerance {MOD_TOL}), gradient errors '
+            f'{[f"{e:.3e}" for e in errs[1:]]} (tolerance {MOD_GRAD_TOL})')
+        expect(errs[0] <= MOD_TOL and max(errs[1:]) <= MOD_GRAD_TOL,
+               f'GraphConv ({name}): the card disagrees with the CPU')
+        times[name] = module_times(f'GraphConv {name}, fwd+bwd',
+                                   lambda: call(layer, adj, x))
+    return times
+
+
+def small_ops_phase():
+    """``coords`` and ``random`` on the card against the CPU (and
+    ``random_spc_octrees`` at batch 4, level 8: valid, deterministic
+    octrees), and the host library's Morton and octree entry points
+    against their numpy versions at config 5's points."""
+    from kaolin_tpu_torch import native
+    from kaolin_tpu_torch.ops.spc.points import _morton_np, _octree_bytes
+    rng = np.random.default_rng(SEED)
+    ang = rng.uniform(-3., 3., (2, C5_N)).astype(np.float32)
+    dist = rng.uniform(0.5, 3., C5_N).astype(np.float32)
+
+    def coords(device):
+        az, el, d = (torch.tensor(a, device=device) for a in (*ang, dist))
+        xyz = kt.ops.spherical2cartesian(az, el, d)
+        return xyz + kt.ops.cartesian2spherical(*xyz)
+
+    card = list(no_kernel_path('[ops] coords', lambda: coords('cuda')))
+    cpu = list(coords('cpu'))
+    # the elevation as its sine: arcsin turns an ulp of its argument near
+    # +-1 into up to 5e-4 radians
+    card[4], cpu[4] = torch.sin(card[4]), torch.sin(cpu[4])
+    errs = [_rel_err(a, b) for a, b in zip(card, cpu)]
+    log(f'[ops] card vs CPU, coords of {C5_N} points (x, y, z, azimuth, '
+        f'sin elevation, distance): errors {[f"{e:.3e}" for e in errs]} of '
+        'the largest (tolerance 1e-6)')
+    expect(max(errs) <= 1e-6, 'coords: the card disagrees with the CPU')
+
+    def octrees():
+        return kt.ops.random.random_spc_octrees(
+            4, SPC_LEVEL, key=torch.Generator().manual_seed(SEED))
+
+    (oct_a, len_a), (oct_b, _) = no_kernel_path('[ops] random', octrees), \
+        octrees()
+    max_level, pyr, exsum = kt.ops.spc.scan_octrees(oct_a, len_a)
+    ph = kt.ops.spc.generate_points(oct_a, pyr, exsum)
+    expect(oct_a.device.type == 'cuda' and torch.equal(oct_a, oct_b)
+           and max_level == SPC_LEVEL and bool((oct_a > 0).all())
+           and pyr[:, 1, SPC_LEVEL].tolist() == len_a.tolist()
+           and ph.shape[0] == int(pyr[:, 1, -1].sum()),
+           'random_spc_octrees: invalid or not deterministic')
+    kt.ops.random.manual_seed(SEED)
+    r1 = kt.ops.random.random_tensor(-1., 1., (C5_N,))
+    kt.ops.random.manual_seed(SEED)
+    r2 = kt.ops.random.random_tensor(-1., 1., (C5_N,))
+    expect(r1.device.type == 'cuda' and torch.equal(r1, r2)
+           and float(r1.abs().max()) <= 1., 'random_tensor: not seeded')
+    log(f'[ops] random_spc_octrees, batch 4, level {SPC_LEVEL}: '
+        f'{len_a.tolist()} bytes, valid and deterministic')
+
+    spc5 = np.random.default_rng(SEED).normal(size=(C5_N, 3))
+    spc5 = spc5 / np.linalg.norm(spc5, axis=-1, keepdims=True) * C5_RADIUS
+    q = kt.ops.spc.quantize_points(torch.tensor(spc5, dtype=torch.float32),
+                                   C5_LEVEL).numpy()
+    morton = native.points_to_morton_fast(q)
+    octree = native.points_to_octree_fast(q, C5_LEVEL)
+    same = (np.array_equal(morton, _morton_np(q))
+            and np.array_equal(native.morton_to_points_fast(morton), q)
+            and np.array_equal(octree, _octree_bytes(np.unique(morton),
+                                                     C5_LEVEL)))
+    times = {name: host_ms(fn) for name, fn in (
+        ('points_to_morton_fast', lambda: native.points_to_morton_fast(q)),
+        ('_morton_np', lambda: _morton_np(q)),
+        ('points_to_octree_fast', lambda: native.points_to_octree_fast(
+            q, C5_LEVEL)),
+        ('_octree_bytes', lambda: _octree_bytes(np.unique(_morton_np(q)),
+                                                C5_LEVEL)))}
+    log(f'[ops] host library at config 5\'s {C5_N} points: equal to numpy '
+        f'{same}; host ms ' + json.dumps(times))
+    expect(same, 'the host library disagrees with its numpy versions')
+    times['coords'] = module_times('coords', lambda: coords('cuda'))
+    return times
+
+
+def module_phases(rays):
+    """Every phase of the modules with no TPU kernel; returns their times
+    and the launches of the mesh -> spc -> trace path."""
+    t0 = time.perf_counter()
+    times = {'sg': sg_phase()}
+    times['spc'], launches = spc_conv_trace_phase(rays)
+    times['voxel'] = voxel_phase()
+    times['gcn'] = gcn_phase()
+    times['ops'] = small_ops_phase()
+    log(f'[modules] all phases {time.perf_counter() - t0:.1f} s')
+    log('[modules] times: ' + json.dumps(times))
+    return times, launches
+
+
 COMPARE_GROUPS = ('render', 'texture', 'metrics', 'deftet', 'spc')
 
 
@@ -3245,8 +3829,10 @@ def main():
     log(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
         f'{torch.cuda.get_device_name(0)}')
     t0 = time.perf_counter()
+    host_s = _build.build_all(_build.HOST_SOURCES)
     log(f'build: {_build.build_all():.1f} s for {len(_build.SOURCES)} '
-        'sources')
+        f'sources (nvcc), {host_s:.1f} s for the host library '
+        '(csrc/core.cpp, g++)')
 
     scenes = [Scene(name, b, s, 'cuda') for name, b, s in SIZES]
     tsc = TexturedScene(TEX_BATCH, TEX_SUBDIV, TEX_SIZE, H, W, 'cuda')
@@ -3333,6 +3919,7 @@ def main():
     check_deftet_against_cpu()
     check_tets_against_cpu()
     check_pack_ops_against_cpu(hits5)
+    mod_times, _ = module_phases(rays5)
 
     main = scenes[0]
     rows = []
@@ -3382,6 +3969,12 @@ def main():
     log(json.dumps({'metric': 'spc_raytrace_256_L8', 'value': c5_ms,
                     'unit': 'ms/trace'}))
     log(card)
+    for name in ('fwd', 'fwdbwd'):
+        t = mod_times['sg'][name]
+        log(json.dumps({'metric': f'sg_reduced_inner_{SG_QUERIES}x'
+                                  f'{SG_LIGHTS}_{name}', 'value': t['ms'],
+                        'unit': 'ms/iter', 'pairs_per_s': t['pairs_per_s']}))
+        log(card)
     log(json.dumps({'kernels': rows}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -4,12 +4,15 @@ The same public functions as ``kaolin_tpu``, with its shapes, dtypes and
 semantics, on ``torch.Tensor``s. Kernel-backed functions follow their
 inputs: a CUDA tensor runs a hand-written Hopper kernel (built from
 ``csrc/`` with ``nvcc`` at first use), a CPU tensor runs the plain PyTorch
-version beside it. Importing the package needs no GPU, ``nvcc`` or
-``triton``.
+version beside it. Scene preprocessing (octree builds, voxelization, OBJ
+parsing) runs on the host in ``native``'s library, built from
+``csrc/core.cpp`` with ``g++`` at first use. Importing the package needs
+no GPU, compiler or ``triton``.
 """
 
 from . import kernels
 from . import metrics
+from . import native
 from . import ops
 from . import render
 from . import rep

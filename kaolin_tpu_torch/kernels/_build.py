@@ -1,12 +1,14 @@
-"""Builds ``kaolin_tpu_torch/csrc/*.cu`` with ``nvcc`` and loads them with
-``ctypes``.
+"""Builds ``kaolin_tpu_torch/csrc/*.cu`` with ``nvcc``, and the host
+library ``csrc/core.cpp`` with ``g++``, and loads them with ``ctypes``.
 
 Each source is compiled on its own into a shared library with a plain C
 interface, named by a hash of the source, the headers beside it
-(``csrc/*.cuh``) and the flags, under
-``kaolin_tpu_torch/_build/`` (listed in ``.gitignore``). A library that is
-already there is loaded as it is. ``build_all`` starts one ``nvcc`` per
-source, all at once.
+(``csrc/*.cuh``, for the CUDA sources) and the flags, under
+``kaolin_tpu_torch/_build/`` (listed in ``.gitignore``). The compiler
+writes a file of its own process's name, which is then renamed into place,
+so processes that build at once never load a half-written library. A
+library that is already there is loaded as it is. ``build_all`` starts one
+``nvcc`` per CUDA source, all at once.
 
 The flags keep the kernels' arithmetic equal to the plain PyTorch versions:
 ``--fmad=false`` stops ``nvcc`` from contracting ``a*b+c`` into one fused
@@ -38,6 +40,9 @@ SOURCES = ('rasterize', 'rasterize_bwd', 'soft_mask', 'grid_sample',
            'nn_distance', 'p2m_distance', 'deftet_topk', 'spc_traverse')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC')
+# the host library (csrc/core.cpp), built with the host compiler
+HOST_SOURCES = ('core',)
+HOST_FLAGS = ('-O3', '-shared', '-fPIC', '-std=c++17')
 
 _loaded = {}
 
@@ -56,23 +61,42 @@ def _nvcc():
     return found
 
 
+def _gxx():
+    found = shutil.which('g++')
+    if found is None:
+        raise RuntimeError('g++ not found on PATH; the host library of '
+                           'kaolin_tpu_torch (csrc/core.cpp) is built with it '
+                           'at first use')
+    return found
+
+
+def _host(name):
+    return name in HOST_SOURCES
+
+
 def _target(name):
-    src = _CSRC / f'{name}.cu'
-    headers = b''.join(h.read_bytes() for h in sorted(_CSRC.glob('*.cuh')))
+    if _host(name):
+        src, headers, flags = _CSRC / f'{name}.cpp', b'', HOST_FLAGS
+    else:
+        src, flags = _CSRC / f'{name}.cu', NVCC_FLAGS
+        headers = b''.join(h.read_bytes()
+                           for h in sorted(_CSRC.glob('*.cuh')))
     digest = hashlib.sha256(src.read_bytes() + headers
-                            + ' '.join(NVCC_FLAGS).encode()).hexdigest()
+                            + ' '.join(flags).encode()).hexdigest()
     return src, _BUILD_DIR / f'{name}-{digest[:16]}.so'
 
 
 def _start(name):
-    """Starts ``nvcc`` for one source; returns (process, tmp, out) or None
-    when the library is already built."""
+    """Starts the compiler for one source; returns (process, tmp, out) or
+    None when the library is already built."""
     src, out = _target(name)
     if out.exists():
         return None
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(src)],
+    cmd = ([_gxx(), *HOST_FLAGS] if _host(name)
+           else [_nvcc(), *NVCC_FLAGS])
+    proc = subprocess.Popen([*cmd, '-o', str(tmp), str(src)],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     return proc, tmp, out
 
@@ -82,15 +106,17 @@ def _finish(name, job):
     log, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f'nvcc failed on csrc/{name}.cu:\n'
+        raise RuntimeError(f'{Path(proc.args[0]).name} failed on '
+                           f'csrc/{name}{".cpp" if _host(name) else ".cu"}:\n'
                            f'{log.decode(errors="replace")}')
     os.replace(tmp, out)
 
 
-def build_all():
-    """Builds every kernel source in parallel; returns the seconds taken."""
+def build_all(names=SOURCES):
+    """Builds the sources ``names`` (every CUDA source by default) in
+    parallel; returns the seconds taken."""
     t0 = time.perf_counter()
-    jobs = {name: _start(name) for name in SOURCES}
+    jobs = {name: _start(name) for name in names}
     errors = []
     for name, job in jobs.items():
         if job is not None:
@@ -103,10 +129,12 @@ def build_all():
     return time.perf_counter() - t0
 
 
-def load(name, signatures):
-    """The ``ctypes`` library built from ``csrc/<name>.cu``, built first if
-    needed. ``signatures`` maps each C entry point to its argument types;
-    every entry point returns a ``cudaError_t`` as an int."""
+def load(name, signatures, restypes=None):
+    """The ``ctypes`` library built from ``csrc/<name>.cu`` (or
+    ``csrc/<name>.cpp`` for a host source), built first if needed.
+    ``signatures`` maps each C entry point to its argument types;
+    ``restypes`` maps an entry point to its result type where that is not
+    an int (a CUDA entry point returns its ``cudaError_t`` as an int)."""
     lib = _loaded.get(name)
     if lib is None:
         job = _start(name)
@@ -115,7 +143,7 @@ def load(name, signatures):
         lib = ctypes.CDLL(str(_target(name)[1]))
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = (restypes or {}).get(fn, ctypes.c_int)
         _loaded[name] = lib
     return lib
 

@@ -3,16 +3,18 @@
 ``kaolin/ops/spc/points.py:35-351``).
 
 Morton layout: bits interleaved as ``x << 2 | y << 1 | z`` per level (z
-least significant). The octree is built on the host with numpy (scene
-preprocessing with data-dependent shapes), as the JAX package's fallback
-does; queries and interpolation are tensor operations on the inputs'
-device.
+least significant). The octree is built on the host by the native library
+(``csrc/core.cpp``, scene preprocessing with data-dependent shapes), as the
+JAX package does; ``_octree_bytes`` is its numpy plain version. Queries
+and interpolation are tensor operations on the inputs' device.
 """
 
 import warnings
 
 import numpy as np
 import torch
+
+from ...native import points_to_octree_fast
 
 __all__ = [
     'quantize_points',
@@ -96,7 +98,8 @@ def _compact3_np(v):
 
 def _octree_bytes(morton, level):
     """Octree bytes, levels 0..level-1 breadth first, of the sorted unique
-    Morton codes ``morton`` at ``level`` (numpy)."""
+    Morton codes ``morton`` at ``level`` (numpy): the plain version of the
+    native library's ``points_to_octree``."""
     octree_levels = []
     cur = morton
     for _ in range(level):
@@ -113,9 +116,9 @@ def _octree_bytes(morton, level):
 
 
 def unbatched_points_to_octree(points, level, sorted=False):
-    """Builds the octree byte stream of quantized 3D points, on the host
-    with numpy, as the JAX package's fallback does
-    (``kaolin_tpu/ops/spc/points.py:159-172``).
+    """Builds the octree byte stream of quantized 3D points on the host,
+    with the native library, as the JAX package does
+    (``kaolin_tpu/ops/spc/points.py:155``).
 
     Bytes are breadth-first, levels 0..level-1; bit ``i`` of a byte marks
     occupancy of child octant ``i = x<<2 | y<<1 | z``.
@@ -125,9 +128,9 @@ def unbatched_points_to_octree(points, level, sorted=False):
     """
     pts = points.detach().cpu().numpy() if torch.is_tensor(points) \
         else np.asarray(points)
-    morton = np.unique(_morton_np(pts.reshape(-1, 3)))
     device = points.device if torch.is_tensor(points) else 'cpu'
-    return torch.as_tensor(_octree_bytes(morton, level), device=device)
+    return torch.as_tensor(points_to_octree_fast(pts.reshape(-1, 3), level),
+                           device=device)
 
 
 def coords_to_trilinear_coeffs(coords, points, level):

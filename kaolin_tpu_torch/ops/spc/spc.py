@@ -15,7 +15,8 @@ Layout (as ``spc_math.h`` / ``spc_utils.cuh``):
   concatenated per octree, Morton-sorted within each level.
 
 The structure (scan, points, dual, trinkets) is built on the host with
-numpy and lands on the input's device; :func:`unbatched_query` and
+numpy (octree bytes with the native library) and lands on the input's
+device; :func:`unbatched_query` and
 :func:`to_dense` are tensor operations on the inputs' device.
 """
 
@@ -24,7 +25,8 @@ import math
 import numpy as np
 import torch
 
-from .points import _compact3_np, _morton_np, _octree_bytes
+from ...native import points_to_octree_fast
+from .points import _compact3_np, _morton_np
 from .uint8 import POPCOUNT8, popcount8
 
 __all__ = [
@@ -305,9 +307,9 @@ def feature_grids_to_spc(feature_grids, masks=None):
             features.append(np.zeros((0, feat_dim), dtype=fg.dtype))
             continue
         morton = np.sort(_morton_np(idx))
-        pts = _points_np(morton).astype(np.int64)
+        pts = _points_np(morton)
         features.append(padded[b][pts[:, 0], pts[:, 1], pts[:, 2]])
-        octree = _octree_bytes(morton, level)
+        octree = points_to_octree_fast(pts, level)
         octrees.append(octree)
         lengths.append(octree.shape[0])
     device = _device(feature_grids)

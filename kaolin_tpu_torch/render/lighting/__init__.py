@@ -1,1 +1,2 @@
 from .sh import *  # noqa: F401,F403
+from .sg import *  # noqa: F401,F403

@@ -14,7 +14,9 @@ meshes over; ``metrics_scene`` and ``metrics_step`` are config 3's
 point-cloud and mesh metrics step, ``ellipsoid_points`` and
 ``mesh_fit_loss`` its mesh fit. ``deftet_scene`` and ``deftet_loss`` are
 config 4's DefTet step; ``spc_from_numpy`` carries an SPC over and
-``sphere_shell_spc`` builds config 5's octree.
+``sphere_shell_spc`` builds config 5's octree. ``load_params`` copies a
+JAX layer's parameters (``GraphConv``, ``Conv3d``, ``ConvTranspose3d``)
+into the port's module.
 """
 
 import math
@@ -34,7 +36,7 @@ __all__ = ['icosphere', 'dibr_params_from_numpy', 'extrinsics_from_numpy',
            'textured_loss', 'pointclouds_from_numpy', 'mesh_from_numpy',
            'metrics_scene', 'near_plane_scene', 'metrics_step',
            'ellipsoid_points', 'mesh_fit_loss', 'deftet_scene', 'deftet_loss',
-           'spc_from_numpy', 'sphere_shell_spc']
+           'spc_from_numpy', 'sphere_shell_spc', 'load_params']
 
 
 def icosphere(subdiv=2):
@@ -364,3 +366,25 @@ def sphere_shell_spc(level=8, n=200_000, seed=0, radius=0.7, device='cuda'):
     _, pyramids, exsum = spc_ops.scan_octrees(octree, [octree.shape[0]])
     ph = spc_ops.generate_points(octree, pyramids, exsum)
     return spc_from_numpy(octree, ph, pyramids[0], exsum, device=device)
+
+
+def load_params(module, params):
+    """Copies a JAX layer's parameter dict (numpy arrays, or arrays numpy
+    can read) into the port's ``module``: ``GraphConv.init`` gives
+    ``weight``, ``bias``, ``weight_self`` and ``bias_self``,
+    ``Conv3d.init`` and ``ConvTranspose3d.init`` give ``weight`` and
+    ``bias``. Every parameter of the module must be in the dict, at its
+    shape, and nothing else; each keeps its dtype and device. Returns the
+    module."""
+    own = dict(module.named_parameters())
+    if set(own) != set(params):
+        raise ValueError(f'parameters {sorted(params)} do not match the '
+                         f"module's {sorted(own)}")
+    with torch.no_grad():
+        for name, p in own.items():
+            value = np.array(params[name])
+            if value.shape != tuple(p.shape):
+                raise ValueError(f'{name}: shape {value.shape}, the module '
+                                 f'holds {tuple(p.shape)}')
+            p.copy_(torch.as_tensor(value, dtype=p.dtype))
+    return module

@@ -157,7 +157,18 @@ DELIBERATE = {
         'render.spc.raytrace.generate_primary_rays',
         'render.spc.raytrace.primary_rays_fn',
         'render.spc.raytrace.primary_rays_fn_cols',
-        'rep.spc.Spc.make_dense'), _DEVICE),
+        'rep.spc.Spc.make_dense',
+        'ops.random.random_tensor',
+        'ops.random.sample_spherical_coords',
+        'ops.random.random_spc_octrees'), _DEVICE),
+    # the layers are nn.Modules: the weights are drawn at construction
+    # (from a torch.Generator, where JAX's ``init`` takes a key), in the
+    # dtype and on the device named there
+    **dict.fromkeys((
+        'ops.gcn.GraphConv.__init__',
+        'ops.spc.convolution.Conv3d.__init__',
+        'ops.spc.convolution.ConvTranspose3d.__init__'),
+        ({'generator', 'dtype', 'device'}, set(), {})),
     # a torch.Generator in place of JAX's PRNG key, at the same place
     'ops.mesh.trianglemesh.sample_points': (set(), set(),
                                             {'key': 'generator'}),

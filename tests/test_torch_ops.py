@@ -198,7 +198,7 @@ def test_interop_dtypes():
 def test_import_leaves_jax_out():
     code = ('import sys, kaolin_tpu_torch; '
             'bad = [m for m in sys.modules if m.split(".")[0] in '
-            '("jax", "jaxlib", "kaolin_tpu", "__graft_entry__")]; '
+            '("jax", "jaxlib", "kaolin_tpu", "__graft_entry__", "scipy")]; '
             'print(bad); sys.exit(1 if bad else 0)')
     res = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -223,13 +223,18 @@ def test_port_sources_import_no_jax():
                 'render/mesh/deftet', 'render/spc/raytrace',
                 'metrics/tetmesh', 'ops/mesh/tetmesh',
                 'ops/conversions/tetmesh', 'ops/spc/uint8', 'ops/spc/points',
-                'ops/spc/spc', 'rep/spc'):
+                'ops/spc/spc', 'rep/spc', 'render/lighting/sg',
+                'ops/spc/convolution', 'native', 'ops/coords', 'ops/random',
+                'ops/voxelgrid', 'metrics/voxelgrid', 'ops/gcn',
+                'ops/mesh/subdivision', 'ops/conversions/pointcloud',
+                'ops/conversions/trianglemesh', 'ops/conversions/mc_tables',
+                'ops/conversions/voxelgrid', 'ops/conversions/mesh'):
         assert f'kaolin_tpu_torch/{mod}.py' in rel, mod
     for path in files:
         for mod in _imports(path):
             top = mod.split('.')[0]
             assert top not in ('jax', 'jaxlib', 'kaolin_tpu',
-                               '__graft_entry__'), (path, mod)
+                               '__graft_entry__', 'scipy'), (path, mod)
 
 
 def _c_entry_points():
