@@ -147,6 +147,21 @@ counters at 0 and read after:
   host library's Morton and octree entry points against their numpy
   versions at config 5's 200,000 points.
 
+Then the sharded paths (``kaolin_tpu_torch.parallel``): ``parallel_world1``
+joins a world of one through torchrun's variables (NCCL) and holds the
+sharded render and train step on a 1 x 1 mesh at ``bench.py``'s size
+against ``dibr_rasterization`` (bit-equal; the gradient to GRAD_TOL),
+timing both in turns; ``parallel_world2`` starts two ranks on the one card
+(this script with ``--rank``, under a deadline): NCCL first, which
+refuses two ranks on one device, then gloo, which moves CUDA tensors for
+``all_reduce``. Each rank runs the sharded render and train step at
+meshes (1, 2) (rank 1 renders from row 256) and (2, 1), config 3's
+sharded Chamfer and point-to-mesh and config 5's trace split in two, and
+each is held against the one-process result on the card, with every
+rank's launch counters. ``io`` writes an OBJ (``vt``, ``vn``, a Kd-only
+MTL), an OFF and a checkpoint of an Adam state, loads them onto the card,
+renders the OBJ and restores the checkpoint bit for bit.
+
 The grid-sample backward's texture gradient must be the same bits at two
 launches (the second with the forward's interleaved copy) in every case,
 and the traversal, run with a budget too small for config 5's levels,
@@ -179,6 +194,8 @@ import ctypes
 import inspect
 import json
 import math
+import os
+import socket
 import subprocess
 import sys
 import time
@@ -186,6 +203,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -200,6 +218,9 @@ from kaolin_tpu_torch.kernels import soft_mask as ks
 from kaolin_tpu_torch.kernels import spc_traverse as kst
 from kaolin_tpu_torch.kernels import texture as ktex
 from kaolin_tpu_torch.kernels.rasterize import _pixel_coords
+from kaolin_tpu_torch.parallel import launch as par_launch
+from kaolin_tpu_torch.parallel import mesh as par_mesh
+from kaolin_tpu_torch.parallel import spc as par_spc
 from kaolin_tpu_torch.render.mesh.dibr import _scaled_inputs
 from kaolin_tpu_torch.render.mesh.rasterization import _kernel_inputs
 from kaolin_tpu_torch.render.mesh.utils import _clip, _uv_coords
@@ -3814,10 +3835,474 @@ def compare(label, groups=COMPARE_GROUPS):
     return 0
 
 
+# ---------------------------------------- parallel/ and io/ (the sharded paths)
+
+# seconds a world of ranks on the card may take before it is killed; the
+# NCCL probe's world takes torch's start-up twice and one init
+PAR_DEADLINE, PROBE_DEADLINE = 300., 90.
+PAR_MESHES = ((1, 2), (2, 1))
+PAR_ITERS = 5
+TOL_SUM = 1e-5       # float32 sums taken in another order (per-rank halves)
+RENDER_PATH = ('rasterize_interp', 'soft_mask_forward', 'rasterize_backward',
+               'soft_mask_backward')
+
+
+def free_port():
+    with contextlib.closing(socket.socket()) as s:
+        s.bind(('localhost', 0))
+        return s.getsockname()[1]
+
+
+def block_rows(mesh, batch):
+    """(this rank's batch rows, its first image row, its rows)."""
+    ndata, di = par_mesh.axis(mesh, 'data')
+    npix, pi = par_mesh.axis(mesh, 'pix')
+    lb, lh = batch // ndata, H // npix
+    return slice(di * lb, (di + 1) * lb), pi * lh, lh
+
+
+def sharded_loss(mesh, feat, mask, target, batch):
+    """``bench.py``'s loss (L1 of the features to 0 plus ``mask_iou`` to the
+    disc) of the whole images from this rank's block: the per-image sums
+    and the L1 sum are summed over the mesh (``mesh_sum``, one
+    all_reduce)."""
+    rows, _, _ = block_rows(mesh, batch)
+    idx = torch.arange(rows.start, rows.stop, device=mask.device)
+    mul, add = mask * target, mask + target
+    lb = mask.shape[0]
+    zeros = mask.new_zeros(batch)
+    sums = par_mesh.mesh_sum(mesh, torch.cat([
+        zeros.index_add(0, idx, mul.reshape(lb, -1).sum(dim=1)),
+        zeros.index_add(0, idx, (add - mul).reshape(lb, -1).sum(dim=1)),
+        feat.abs().sum()[None]]))
+    l1 = sums[-1] / (batch * H * W * feat.shape[-1])
+    return l1 + (1. - (sums[:batch] / (sums[batch:2 * batch] + 1e-10)).mean())
+
+
+def sharded_forward(sc, mesh, verts):
+    _, faces, rot, trans, proj = sc.args
+    fvc, fvi, fn = kt.render.mesh.prepare_vertices(
+        verts, faces, proj, camera_rot=rot, camera_trans=trans)
+    return kt.parallel.sharded_dibr_rasterization(
+        mesh, H, W, fvc[..., 2], fvi, sc.features(fvc, 4), fn[..., 2])
+
+
+def sharded_step(sc, mesh, verts):
+    """The train step through the sharded render: (loss, gradient to the
+    whole vertices, this rank's block)."""
+    verts = verts.detach().requires_grad_(True)
+    feat, mask, idx = sharded_forward(sc, mesh, verts)
+    rows, r0, lh = block_rows(mesh, sc.batch)
+    loss = sharded_loss(mesh, feat, mask, sc.target[rows, r0:r0 + lh],
+                        sc.batch)
+    g, = torch.autograd.grad(loss, [verts])
+    return loss.detach(), g, (feat.detach(), mask.detach(), idx)
+
+
+def plain_step(sc, verts):
+    verts = verts.detach().requires_grad_(True)
+    loss = sc.train_loss(verts)
+    g, = torch.autograd.grad(loss, [verts])
+    return loss.detach(), g
+
+
+def check_launches(label, launches, names):
+    for name in names:
+        expect(launches[name] > 0, f'{label}: {name} was not launched')
+
+
+def parallel_world1(sc):
+    """``init_distributed`` through torchrun's variables (NCCL, a world of
+    one), ``make_mesh()`` (1 x 1), the sharded render and its train step
+    at ``bench.py``'s size against ``dibr_rasterization``, both timed.
+    Returns {name: ms}."""
+    saved = {k: os.environ.get(k) for k in ('MASTER_ADDR', 'MASTER_PORT',
+                                            'WORLD_SIZE', 'RANK',
+                                            'LOCAL_RANK', 'LOCAL_WORLD_SIZE')}
+    os.environ.update(MASTER_ADDR='localhost', MASTER_PORT=str(free_port()),
+                      WORLD_SIZE='1', RANK='0', LOCAL_RANK='0',
+                      LOCAL_WORLD_SIZE='1')
+    try:
+        rank, world = kt.parallel.init_distributed()
+        backend = dist.get_backend()
+        x = torch.ones(1, device='cuda')
+        dist.all_reduce(x)
+        mesh = kt.parallel.make_mesh()
+        log(f'[parallel_world1] init_distributed: rank {rank} of {world}, '
+            f'backend {backend}, one all_reduce on the card {float(x)}, '
+            f'mesh {tuple(mesh.mesh.shape)} {mesh.mesh_dim_names} '
+            f'({mesh.device_type})')
+        expect((rank, world) == (0, 1) and backend == 'nccl'
+               and float(x) == 1. and tuple(mesh.mesh.shape) == (1, 1),
+               'parallel_world1: not a one-rank NCCL world')
+        verts = sc.args[0]
+        reset_counters()
+        loss, g, (feat, mask, idx) = sharded_step(sc, mesh, verts)
+        launches = read_counters('parallel_world1 path')
+        check_launches('parallel_world1', launches, RENDER_PATH)
+        ref_feat, ref_mask, ref_idx, _ = sc.forward(4)
+        ref_loss, ref_g = plain_step(sc, verts)
+        torch.cuda.synchronize()
+        same = (torch.equal(idx, ref_idx) and torch.equal(mask, ref_mask)
+                and torch.equal(feat, ref_feat))
+        rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        log(f'[parallel_world1] sharded vs dibr_rasterization: face_idx, '
+            f'mask and features bit-equal {same}; loss {float(loss):.7f} vs '
+            f'{float(ref_loss):.7f} (rel {rel:.2e})')
+        expect(same and rel <= TOL_SUM,
+               'parallel_world1: the sharded render differs')
+        grad_close('[parallel_world1] train-step grad', g, ref_g)
+        # in turns (plain, sharded, sharded, plain): the host's spread
+        calls = {'fwd': (lambda: sc.forward(4),
+                         lambda: sharded_forward(sc, mesh, verts)),
+                 'step': (lambda: plain_step(sc, verts),
+                          lambda: sharded_step(sc, mesh, verts))}
+        times = {}
+        for name, (plain, sharded) in calls.items():
+            turns = [time_ms(fn, TIME_ITERS)
+                     for fn in (plain, sharded, sharded, plain)]
+            times[f'plain_{name}'] = (turns[0], turns[3])
+            times[f'sharded_{name}'] = (turns[1], turns[2])
+            log(f'[parallel_world1] time {name} (batch {sc.batch}, '
+                f'{sc.num_faces} faces, {H}x{W}, ms per call, in turns '
+                f'plain / sharded / sharded / plain): '
+                + ' / '.join(f'{t:.4f}' for t in turns))
+        return times
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def rank_render(out):
+    sc = Scene('bench', *SIZES[0][1:], 'cuda')
+    for data, pix in PAR_MESHES:
+        mesh = kt.parallel.make_mesh(data=data, pix=pix)
+        key = f'{data}x{pix}'
+        _, r0, _ = block_rows(mesh, sc.batch)
+        reset_counters()
+        loss, g, (feat, mask, idx) = sharded_step(sc, mesh, sc.args[0])
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in COUNTERS}
+        out.update({f'{key}_loss': loss, f'{key}_grad': g,
+                    f'{key}_feat': feat, f'{key}_mask': mask,
+                    f'{key}_idx': idx, f'{key}_row_start': r0,
+                    **{f'{key}_n_{k}': v for k, v in launches.items()}})
+        out[f'{key}_fwd_ms'] = time_ms(
+            lambda: sharded_forward(sc, mesh, sc.args[0]), PAR_ITERS)
+        out[f'{key}_step_ms'] = time_ms(
+            lambda: sharded_step(sc, mesh, sc.args[0]), PAR_ITERS)
+
+
+def rank_metrics(out):
+    p1, p2, fv = kt.utils.interop.metrics_scene(SEED, M3_N, M3_N, M3_FACES)
+    mesh = kt.parallel.make_mesh()
+    reset_counters()
+    a, b = p1.clone().requires_grad_(True), p2.clone().requires_grad_(True)
+    c = kt.parallel.sharded_chamfer_distance(mesh, a, b)
+    g1, g2 = torch.autograd.grad(c.sum(), [a, b])
+    a, f = p1.clone().requires_grad_(True), fv.clone().requires_grad_(True)
+    d, i, t = kt.parallel.sharded_point_to_mesh_distance(mesh, a, f)
+    gp, gf = torch.autograd.grad(d.sum(), [a, f])
+    torch.cuda.synchronize()
+    out.update(chamfer=c, chamfer_g1=g1, chamfer_g2=g2, p2m_dist=d,
+               p2m_idx=i, p2m_type=t, p2m_gp=gp, p2m_gf=gf,
+               **{f'metrics_n_{c.__name__}': c.launches for c in COUNTERS})
+
+    def step():
+        kt.parallel.sharded_chamfer_distance(mesh, p1, p2)
+        kt.parallel.sharded_point_to_mesh_distance(mesh, p1, fv)
+    out['metrics_ms'] = time_ms(step, PAR_ITERS)
+
+
+def rank_trace(out):
+    octree, ph, _, exsum = kt.utils.interop.sphere_shell_spc(
+        level=C5_LEVEL, n=C5_N, seed=SEED, radius=C5_RADIUS)
+    o, d = kt.render.spc.generate_primary_rays(C5_RES, C5_RES, *C5_CAM)
+    mesh = kt.parallel.make_mesh(data=1, pix=2)
+    sched, cap = par_spc.plan_sharded_raytrace(2, octree, ph, exsum, o, d,
+                                               C5_LEVEL)
+    reset_counters()
+    ridx, pidx, depth, count = kt.parallel.sharded_raytrace(
+        mesh, octree, ph, exsum, o, d, C5_LEVEL, cap, cap_schedule=sched)
+    n = int(count[0])
+    out.update(trace_ridx=ridx[:n], trace_pidx=pidx[:n],
+               trace_depth=depth[:n], trace_count=count, trace_cap=cap,
+               trace_n_traverse=kst.traverse.launches)
+    out['trace_ms'] = time_ms(lambda: kt.parallel.sharded_raytrace(
+        mesh, octree, ph, exsum, o, d, C5_LEVEL, cap, cap_schedule=sched),
+        PAR_ITERS)
+
+
+def rank_main(task, backend, out_dir):
+    """One rank of ``parallel_world2`` (``chip_smoke.py --rank``): joins
+    the world on card 0 with ``backend``; ``probe`` makes one all_reduce,
+    ``work`` runs the sharded render and its train step at meshes (1, 2)
+    and (2, 1), config 3's sharded metrics and config 5's split trace, and
+    writes its blocks, gradients, launch counts and times to
+    ``out_dir/rank_<r>.npz``."""
+    rank, world = kt.parallel.init_distributed(backend=backend,
+                                               local_device_ids=[0])
+    if task == 'probe':
+        x = torch.ones(1, device='cuda')
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        log(f'[rank {rank}] {backend}: all_reduce on card 0 gave {float(x)}')
+        dist.destroy_process_group()
+        return 0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    start = time.perf_counter()
+    rank_render(out)
+    rank_metrics(out)
+    rank_trace(out)
+    out['rank_s'] = time.perf_counter() - start
+    np.savez(os.path.join(out_dir, f'rank_{rank}.npz'),
+             **{k: (v.detach().cpu().numpy() if torch.is_tensor(v)
+                    else np.asarray(v)) for k, v in out.items()})
+    dist.destroy_process_group()
+    log(f'[rank {rank}] done in {out["rank_s"]:.1f} s')
+    return 0
+
+
+def run_world(task, backend, out_dir, deadline):
+    outs = par_launch.run_ranks(
+        2, [sys.executable, os.path.abspath(__file__), '--rank', task,
+            backend, out_dir], deadline=deadline, master_port=free_port(),
+        env={'OMP_NUM_THREADS': '4'})     # the host's 8 cores, halved
+    for rank, text in enumerate(outs):
+        for line in text.splitlines():
+            log(f'    {line}')
+
+
+def parallel_world2(scenes):
+    """Two ranks on the one card: NCCL first (it refuses two ranks on one
+    device), else gloo, which moves CUDA tensors for ``all_reduce``. Each
+    rank's render, train-step gradient, metrics and trace against the
+    one-process result on the card, and its launch counts. Returns the
+    ranks' times."""
+    import tempfile
+    backend = 'nccl'
+    with tempfile.TemporaryDirectory() as probe_dir:
+        try:
+            run_world('probe', 'nccl', probe_dir, PROBE_DEADLINE)
+            log('[parallel_world2] NCCL runs two ranks on one card')
+        except par_launch.RankError as exc:
+            why = [ln.strip() for ln in str(exc).splitlines()
+                   if 'Duplicate GPU' in ln or 'Error' in ln][:3]
+            log(f'[parallel_world2] NCCL refused two ranks on one card: '
+                f'{" | ".join(why) or str(exc)[:400]}; gloo over CUDA '
+                'tensors instead')
+            backend = 'gloo'
+    with tempfile.TemporaryDirectory() as out_dir:
+        start = time.perf_counter()
+        run_world('work', backend, out_dir, PAR_DEADLINE)
+        wall = time.perf_counter() - start
+        outs = [dict(np.load(os.path.join(out_dir, f'rank_{r}.npz')))
+                for r in range(2)]
+    log(f'[parallel_world2] backend {backend}: the world took {wall:.1f} s')
+
+    sc = scenes[0]
+    ref_feat, ref_mask, ref_idx, _ = sc.forward(4)
+    _, ref_g = plain_step(sc, sc.args[0])
+    for data, pix in PAR_MESHES:
+        key = f'{data}x{pix}'
+        got = {}
+        for name in ('feat', 'mask', 'idx'):
+            rows = [np.concatenate([o[f'{key}_{name}'] for o in outs[
+                d * pix:(d + 1) * pix]], axis=1) for d in range(data)]
+            got[name] = torch.from_numpy(np.concatenate(rows, axis=0))
+        mism = int((got['idx'] != ref_idx.cpu()).sum())
+        err = max(max_err(got['mask'], ref_mask.cpu()),
+                  max_err(got['feat'], ref_feat.cpu()))
+        starts = [int(o[f'{key}_row_start']) for o in outs]
+        log(f'[parallel_world2] mesh {key}: rows from {starts}, face_idx '
+            f'mismatches {mism}, mask and features max err {err:.3e}')
+        expect(mism == 0 and err <= TOL_FEATURES,
+               f'parallel_world2 {key}: the gathered render differs')
+        for r, o in enumerate(outs):
+            check_launches(f'parallel_world2 {key} rank {r}',
+                           {n: int(o[f'{key}_n_{n}']) for n in RENDER_PATH},
+                           RENDER_PATH)
+            grad_close(f'[parallel_world2] {key} rank {r} train-step grad',
+                       torch.from_numpy(o[f'{key}_grad']).to(ref_g.device),
+                       ref_g)
+        expect(starts == ([0, H // 2] if pix == 2 else [0, 0]),
+               'parallel_world2: unexpected row slabs')
+
+    p1, p2, fv = kt.utils.interop.metrics_scene(SEED, M3_N, M3_N, M3_FACES)
+    a, b = p1.clone().requires_grad_(True), p2.clone().requires_grad_(True)
+    c = kt.metrics.pointcloud.chamfer_distance(a, b)
+    g1, g2 = torch.autograd.grad(c.sum(), [a, b])
+    c = c.detach()
+    a, f = p1.clone().requires_grad_(True), fv.clone().requires_grad_(True)
+    d, i, t = kt.metrics.trianglemesh.point_to_mesh_distance(a, f)
+    gp, gf = torch.autograd.grad(d.sum(), [a, f])
+    cat = {k: torch.from_numpy(np.concatenate([o[k] for o in outs], axis=1))
+           for k in ('p2m_dist', 'p2m_idx', 'p2m_type')}
+    for r, o in enumerate(outs):
+        rel = abs(float(o['chamfer'][0]) - float(c)) / float(c)
+        log(f'[parallel_world2] rank {r}: chamfer {float(o["chamfer"][0]):.7e}'
+            f' vs {float(c):.7e} (rel {rel:.2e}), pruned NN launches '
+            f'{int(o["metrics_n_nearest_idx_pruned"])}, p2m_select launches '
+            f'{int(o["metrics_n_p2m_select"])}')
+        expect(rel <= TOL_SUM, f'parallel_world2 rank {r}: the sharded '
+               'chamfer differs')
+        check_launches(f'parallel_world2 metrics rank {r}', {
+            n: int(o[f'metrics_n_{n}']) for n in ('nearest_idx_pruned',
+                                                  'p2m_select')},
+            ('nearest_idx_pruned', 'p2m_select'))
+        for name, out, ref in (('chamfer grad p1', 'chamfer_g1', g1),
+                               ('chamfer grad p2', 'chamfer_g2', g2),
+                               ('p2m grad points', 'p2m_gp', gp),
+                               ('p2m grad faces', 'p2m_gf', gf)):
+            grad_close(f'[parallel_world2] rank {r} {name}',
+                       torch.from_numpy(o[out]).to(ref.device), ref)
+    mism = (int((cat['p2m_idx'] != i.cpu()).sum())
+            + int((cat['p2m_type'] != t.cpu()).sum()))
+    err = max_err(cat['p2m_dist'], d.detach().cpu())
+    log(f'[parallel_world2] point-to-mesh gathered: face and type '
+        f'mismatches {mism}, max err {err:.3e}')
+    expect(mism == 0 and err == 0., 'parallel_world2: sharded p2m differs')
+
+    octree, ph, pyramid, exsum = kt.utils.interop.sphere_shell_spc(
+        level=C5_LEVEL, n=C5_N, seed=SEED, radius=C5_RADIUS)
+    o5, d5 = kt.render.spc.generate_primary_rays(C5_RES, C5_RES, *C5_CAM)
+    ridx, pidx, depth = kt.render.spc.unbatched_raytrace(
+        octree, ph, pyramid, exsum, o5, d5, C5_LEVEL)
+    per = o5.shape[0] // 2
+    rays = torch.from_numpy(np.concatenate(
+        [o['trace_ridx'] + r * per for r, o in enumerate(outs)]))
+    pts = torch.from_numpy(np.concatenate([o['trace_pidx'] for o in outs]))
+    dep = torch.from_numpy(np.concatenate([o['trace_depth'] for o in outs]))
+    same = (torch.equal(rays, ridx.cpu()) and torch.equal(pts, pidx.cpu())
+            and torch.equal(dep, depth.cpu()))
+    counts = [int(o['trace_count'][0]) for o in outs]
+    log(f'[parallel_world2] trace split in two: hits {counts} (one process '
+        f'{ridx.shape[0]}), ids and depths equal {same}, traversal launches '
+        f'{[int(o["trace_n_traverse"]) for o in outs]}, cap '
+        f'{[int(o["trace_cap"]) for o in outs]}')
+    expect(same, 'parallel_world2: the split trace differs')
+    for r, o in enumerate(outs):
+        check_launches(f'parallel_world2 trace rank {r}',
+                       {'traverse': int(o['trace_n_traverse'])},
+                       ('traverse',))
+
+    times = {}
+    for r, o in enumerate(outs):
+        times[r] = {k: float(o[k]) for k in o if k.endswith('_ms')}
+        log(f'[parallel_world2] time rank {r} of 2 sharing one card '
+            f'(backend {backend}, ms per call): ' + ', '.join(
+                f'{k} {v:.4f}' for k, v in times[r].items()))
+    return backend, times
+
+
+def io_phase(main_scene):
+    """OBJ (with ``vt``, ``vn`` and a Kd-only MTL), OFF and a checkpoint of
+    an Adam state written to a temp dir, loaded onto the card and checked
+    against the arrays written; the OBJ rendered through the forward DIB-R
+    (face_idx equal to the bench scene's first image); the checkpoint
+    restored bit-exactly."""
+    import tempfile
+    verts, faces = kt.utils.interop.icosphere(SIZES[0][2])
+    uvs = np.stack([0.5 + np.arctan2(verts[:, 2], verts[:, 0]) / (2 * np.pi),
+                    0.5 + np.arcsin(np.clip(verts[:, 1], -1, 1)) / np.pi],
+                   axis=1).astype(np.float32)
+    kd = np.array([0.8, 0.5, 0.2], np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        obj_path = os.path.join(tmp, 'ico.obj')
+        with open(os.path.join(tmp, 'ico.mtl'), 'w') as f:
+            f.write('newmtl skin\nKd %.9g %.9g %.9g\n' % tuple(kd))
+        lines = ['mtllib ico.mtl']
+        lines += ['v %.9g %.9g %.9g' % tuple(v) for v in verts]
+        lines += ['vt %.9g %.9g' % tuple(u) for u in uvs]
+        lines += ['vn %.9g %.9g %.9g' % tuple(v) for v in verts]
+        lines += ['usemtl skin']
+        lines += ['f ' + ' '.join(f'{i + 1}/{i + 1}/{i + 1}' for i in fc)
+                  for fc in faces]
+        with open(obj_path, 'w') as f:
+            f.write('\n'.join(lines) + '\n')
+        off_path = os.path.join(tmp, 'ico.off')
+        with open(off_path, 'w') as f:
+            f.write(f'OFF\n{len(verts)} {len(faces)} 0\n'
+                    + ''.join('%.9g %.9g %.9g\n' % tuple(v) for v in verts)
+                    + ''.join('3 %d %d %d\n' % tuple(fc) for fc in faces))
+        mesh = kt.io.obj.import_mesh(obj_path, with_materials=True,
+                                     with_normals=True, device='cuda')
+        off_mesh = kt.io.off.import_mesh(off_path, device='cuda')
+        f64 = faces.astype(np.int64)
+        want = dict(vertices=verts, faces=f64, uvs=uvs, face_uvs_idx=f64,
+                    vertex_normals=verts, face_normals=f64,
+                    materials_order=np.array([[0, 0]]))
+        ok = all(getattr(mesh, k).device.type == 'cuda' and np.array_equal(
+            getattr(mesh, k).cpu().numpy(), v) for k, v in want.items())
+        ok = ok and np.array_equal(mesh.materials[0]['Kd'].cpu().numpy(), kd)
+        ok_off = (off_mesh.vertices.device.type == 'cuda'
+                  and np.array_equal(off_mesh.vertices.cpu().numpy(), verts)
+                  and np.array_equal(off_mesh.faces.cpu().numpy(), f64))
+        log(f'[io] OBJ ({len(verts)} vertices, {len(faces)} faces, vt, vn, '
+            f'Kd-only MTL) on the card equal to the arrays written {ok}; '
+            f'OFF {ok_off}')
+        expect(ok and ok_off, 'io: a loaded mesh differs from the arrays')
+
+        _, _, rot, trans, proj = main_scene.args
+        reset_counters()
+        fvc, fvi, fn = kt.render.mesh.prepare_vertices(
+            mesh.vertices[None], mesh.faces, proj, camera_rot=rot[:1],
+            camera_trans=trans[:1])
+        feat_uv = kt.ops.mesh.index_vertices_by_faces(mesh.uvs[None],
+                                                      mesh.face_uvs_idx)
+        feat, soft, idx = kt.render.mesh.dibr_rasterization(
+            H, W, fvc[..., 2], fvi, feat_uv, fn[..., 2])
+        launches = read_counters('io render path')
+        check_launches('io render', launches, ('rasterize_interp',
+                                               'soft_mask_forward'))
+        ref_idx = main_scene.forward(4)[2][:1]
+        same = torch.equal(idx, ref_idx)
+        cov = float((idx >= 0).float().mean())
+        log(f'[io] the loaded OBJ rendered: coverage {cov:.4f}, face_idx '
+            f'equal to the bench scene\'s first image {same}, uv in '
+            f'[{float(feat.min()):.3f}, {float(feat.max()):.3f}]')
+        expect(same and bool(torch.isfinite(feat).all()
+                             and torch.isfinite(soft).all()),
+               'io: the loaded mesh renders otherwise')
+
+        p = mesh.vertices.clone().requires_grad_(True)
+        opt = torch.optim.Adam([p], lr=1e-3)
+        for _ in range(3):
+            opt.zero_grad()
+            (p ** 2).sum().backward()
+            opt.step()
+        state = {'params': p.detach(), 'opt': opt.state_dict(), 'step': 3}
+        mgr = kt.utils.checkpoint.CheckpointManager(os.path.join(tmp, 'ck'),
+                                                    max_to_keep=2)
+        for step in (1, 2, 3):
+            mgr.save(step, state)
+        back = mgr.restore(mgr.latest_step(), device='cuda')
+        leaves, _ = kt.utils.checkpoint._flatten(state)
+        got, _ = kt.utils.checkpoint._flatten(back)
+        exact = len(leaves) == len(got) and all(
+            (torch.is_tensor(a) and a.dtype == b.dtype
+             and b.device.type == 'cuda' and torch.equal(a.to(b.device), b))
+            or (not torch.is_tensor(a) and a == b)
+            for a, b in zip(leaves, got))
+        log(f'[io] checkpoint of an Adam state ({len(leaves)} leaves): steps '
+            f'kept {mgr.all_steps()}, restored on the card bit-exactly '
+            f'{exact}')
+        expect(exact and mgr.all_steps() == [2, 3],
+               'io: the checkpoint round trip differs')
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device visible', file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ['--rank']:
+        return rank_main(*sys.argv[2:5])
     if sys.argv[1:2] == ['--compare']:
         return compare(sys.argv[2] if len(sys.argv) > 2 else 'this tree',
                        tuple(sys.argv[3:]) or COMPARE_GROUPS)
@@ -3920,6 +4405,9 @@ def main():
     check_tets_against_cpu()
     check_pack_ops_against_cpu(hits5)
     mod_times, _ = module_phases(rays5)
+    par1_times = parallel_world1(scenes[0])
+    par2_backend, par2_times = parallel_world2(scenes)
+    io_phase(scenes[0])
 
     main = scenes[0]
     rows = []

@@ -7,13 +7,15 @@ inputs: a CUDA tensor runs a hand-written Hopper kernel (built from
 version beside it. Scene preprocessing (octree builds, voxelization, OBJ
 parsing) runs on the host in ``native``'s library, built from
 ``csrc/core.cpp`` with ``g++`` at first use. Importing the package needs
-no GPU, compiler or ``triton``.
+no GPU, compiler, ``triton`` or PIL.
 """
 
+from . import io
 from . import kernels
 from . import metrics
 from . import native
 from . import ops
+from . import parallel
 from . import render
 from . import rep
 from . import utils

@@ -1,1 +1,3 @@
+from . import checkpoint
 from . import interop
+from . import testing

@@ -31,6 +31,17 @@ TOL = {np.float64: 1e-10, np.float32: 1e-5}
 GRAD_TOL = {np.float64: 1e-9, np.float32: 1e-4}
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_thread():
+    """One intra-op thread: under the suite's six workers the default
+    threads contend for the cores (one case of this file's took 10-20x its
+    time alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _pixels(side, dtype):
     ys, xs = np.meshgrid(np.linspace(-1, 1, side), np.linspace(-1, 1, side))
     pc = np.stack([xs.ravel(), ys.ravel()], -1)[None].astype(dtype)

@@ -160,7 +160,23 @@ DELIBERATE = {
         'rep.spc.Spc.make_dense',
         'ops.random.random_tensor',
         'ops.random.sample_spherical_coords',
-        'ops.random.random_spc_octrees'), _DEVICE),
+        'ops.random.random_spc_octrees',
+        # the loaders: a tensor lands on the device the caller names
+        'io.obj.import_mesh',
+        'io.obj.load_mtl',
+        'io.off.import_mesh',
+        'io.render.import_synthetic_view',
+        'io.materials.PBRMaterial.from_dict',
+        'io.materials.PBRMaterial.read_from_obj',
+        'io.modelnet.ModelNet.__init__',
+        'io.shapenet.ShapeNetV1.__init__',
+        'io.shapenet.ShapeNetV2.__init__',
+        'io.shrec.SHREC16.__init__',
+        'utils.checkpoint.load_pytree',
+        'utils.checkpoint.CheckpointManager.restore'), _DEVICE),
+    # the process group's backend: 'nccl' for the card, 'gloo' where the
+    # caller asks for it (JAX picks its runtime itself)
+    'parallel.distributed.init_distributed': ({'backend'}, set(), {}),
     # the layers are nn.Modules: the weights are drawn at construction
     # (from a torch.Generator, where JAX's ``init`` takes a key), in the
     # dtype and on the device named there

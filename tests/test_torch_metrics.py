@@ -32,6 +32,17 @@ TOL = {np.float64: 1e-10, np.float32: 1e-5}
 DTYPES = [np.float64, np.float32]
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_thread():
+    """One intra-op thread: under the suite's six workers the default
+    threads contend for the cores (one case of this file's took 10-20x its
+    time alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _close(ref, out, dtype, scale=1.):
     np.testing.assert_allclose(np.asarray(ref), out.detach().numpy(),
                                rtol=TOL[dtype], atol=TOL[dtype] * scale)

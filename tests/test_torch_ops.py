@@ -198,7 +198,8 @@ def test_interop_dtypes():
 def test_import_leaves_jax_out():
     code = ('import sys, kaolin_tpu_torch; '
             'bad = [m for m in sys.modules if m.split(".")[0] in '
-            '("jax", "jaxlib", "kaolin_tpu", "__graft_entry__", "scipy")]; '
+            '("jax", "jaxlib", "kaolin_tpu", "__graft_entry__", "scipy", '
+            '"PIL")]; '
             'print(bad); sys.exit(1 if bad else 0)')
     res = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -228,7 +229,12 @@ def test_port_sources_import_no_jax():
                 'ops/voxelgrid', 'metrics/voxelgrid', 'ops/gcn',
                 'ops/mesh/subdivision', 'ops/conversions/pointcloud',
                 'ops/conversions/trianglemesh', 'ops/conversions/mc_tables',
-                'ops/conversions/voxelgrid', 'ops/conversions/mesh'):
+                'ops/conversions/voxelgrid', 'ops/conversions/mesh',
+                'parallel/distributed', 'parallel/mesh', 'parallel/render',
+                'parallel/metrics', 'parallel/spc', 'parallel/launch',
+                'io/utils', 'io/materials', 'io/obj', 'io/off', 'io/render',
+                'io/dataset', 'io/modelnet', 'io/shapenet', 'io/shrec',
+                'utils/testing', 'utils/checkpoint'):
         assert f'kaolin_tpu_torch/{mod}.py' in rel, mod
     for path in files:
         for mod in _imports(path):

@@ -26,6 +26,17 @@ from __graft_entry__ import _scene
 DTYPES = [np.float64, np.float32]
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_thread():
+    """One intra-op thread: under the suite's six workers the default
+    threads contend for the cores (one case of this file's took 10-20x its
+    time alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(a):
     return torch.tensor(np.asarray(a))
 

@@ -44,6 +44,17 @@ TOL = {np.float64: 1e-12, np.float32: 1e-5}
 GRAD_TOL = {np.float64: 1e-9, np.float32: 1e-4}
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_thread():
+    """One intra-op thread: under the suite's six workers the default
+    threads contend for the cores (one case of this file's took 10-20x its
+    time alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _spc():
     """Config 5's sphere shell (radius 0.7), 20,000 points at level 5,
     from ``kaolin_tpu``; the same arrays in the port's types."""

@@ -49,6 +49,17 @@ BIG_PIX = 32 * AHEAD * WARPS
 SM = dict(sigmainv=7000., multiplier=1000.)
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_thread():
+    """One intra-op thread: under the suite's six workers the default
+    threads contend for the cores (one case of this file's took 10-20x its
+    time alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _close(ref, out):
     ref, out = np.asarray(ref, np.float64), np.asarray(out, np.float64)
     scale = float(np.abs(ref).max())

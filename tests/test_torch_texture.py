@@ -33,6 +33,17 @@ MODES = ['bilinear', 'nearest']
 TOL = {np.float64: (1e-12, 1e-12, 1e-12), np.float32: (1e-6, 1e-6, 5e-5)}
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_thread():
+    """One intra-op thread: under the suite's six workers the default
+    threads contend for the cores (one case of this file's took 10-20x its
+    time alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(a, grad=False):
     return torch.tensor(np.asarray(a), requires_grad=grad)
 
