@@ -160,7 +160,16 @@ sharded Chamfer and point-to-mesh and config 5's trace split in two, and
 each is held against the one-process result on the card, with every
 rank's launch counters. ``io`` writes an OBJ (``vt``, ``vn``, a Kd-only
 MTL), an OFF and a checkpoint of an Adam state, loads them onto the card,
-renders the OBJ and restores the checkpoint bit for bit.
+renders the OBJ and restores the checkpoint bit for bit. ``usd`` runs 21
+of config 2's train steps and checkpoints the step's CUDA vertices (which
+require grad) with ``visualize.Timelapse`` at iterations 0, 10 and 20,
+config 3's 100,000-point cloud and a 128^3 grid of config 2's mesh once;
+reads every checkpoint back onto the card bit for bit; exports config 2's
+8 meshes to ``.usda`` and ``.usdc`` and reads them back; renders the mesh
+read back (``face_idx`` equal to the render of what was written, the
+forward kernels counted); decodes the dash3d helper's mesh payload; and
+round-trips a material with values only. It logs the host ms of each
+write and read and the files' bytes, and needs neither PIL nor tornado.
 
 The grid-sample backward's texture gradient must be the same bits at two
 launches (the second with the forward's interleaved copy) in every case,
@@ -208,6 +217,7 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile, schedule
 
 import kaolin_tpu_torch as kt
+from kaolin_tpu_torch.experimental.dash3d import util as dash3d_util
 from kaolin_tpu_torch.kernels import _build
 from kaolin_tpu_torch.kernels import deftet_topk as kd
 from kaolin_tpu_torch.kernels import nn_distance as kn
@@ -4297,6 +4307,180 @@ def io_phase(main_scene):
                'io: the checkpoint round trip differs')
 
 
+# the iterations of config 2's train step that Timelapse checkpoints
+USD_CHECKPOINTS = (0, 10, 20)
+
+
+def usd_render_idx(sc, verts):
+    """``face_idx`` of config 2's forward render of ``verts``."""
+    _, faces, rot, trans, proj = sc.args
+    fvc, fvi, fn = kt.render.mesh.prepare_vertices(
+        verts, faces, proj, camera_rot=rot, camera_trans=trans)
+    return kt.render.mesh.dibr_rasterization(
+        H, W, fvc[..., 2], fvi, sc.features(fvc, 4), fn[..., 2])[2]
+
+
+def usd_phase(sc):
+    """USD I/O, ``Timelapse`` and the dash3d helper on the card at config
+    2's size: config 2's train step (``sc``) checkpointed by
+    ``Timelapse.add_mesh_batch`` at USD_CHECKPOINTS from its CUDA vertex
+    tensor (which requires grad), config 3's cloud and one VOX_RES^3 grid
+    of config 2's mesh checkpointed once; everything read back onto the
+    card bit-equal, at every time written; config 2's 8 meshes exported to
+    ``.usda`` and ``.usdc`` and read back; the mesh read back at the last
+    checkpoint rendered (``face_idx`` equal to the render of what was
+    written, the forward kernels counted); the viewer's mesh payload
+    decoded; a material with values only round-tripped. Host ms of each
+    write and read, with the file sizes; returns them."""
+    import tempfile
+    usd = kt.io.usd
+    pil_before = 'PIL' in sys.modules
+    faces = sc.faces
+    out = {'checkpoint_ms': {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        logdir = os.path.join(tmp, 'logs')
+        tl = kt.visualize.Timelapse(logdir)
+        written = {}
+        reset_counters()
+        v = sc.args[0]
+        for it in range(USD_CHECKPOINTS[-1] + 1):
+            v = v.detach().requires_grad_(True)
+            loss = sc.train_loss(v)
+            if it in USD_CHECKPOINTS:
+                expect(v.device.type == 'cuda' and v.requires_grad,
+                       'usd: the checkpointed vertices are not the step\'s')
+                t0 = time.perf_counter()
+                tl.add_mesh_batch(iteration=it, category='config2',
+                                  vertices_list=list(v),
+                                  faces_list=[faces] * sc.batch)
+                out['checkpoint_ms'][it] = (time.perf_counter() - t0) * 1e3
+                written[it] = v.detach().clone()
+            g, = torch.autograd.grad(loss, [v])
+            v = v.detach() - TRAIN_LR * g
+        check_launches('usd train', read_counters('usd train path'),
+                       ('rasterize_interp', 'soft_mask_forward',
+                        'rasterize_backward', 'soft_mask_backward'))
+        log(f'[usd] Timelapse.add_mesh_batch of config 2\'s {sc.batch} '
+            f'meshes ({sc.num_faces} faces) at iterations '
+            f'{list(USD_CHECKPOINTS)}: host ms '
+            + json.dumps(out['checkpoint_ms']))
+
+        cloud = kt.utils.interop.metrics_scene(SEED, M3_N, M3_N, 1)[0][0]
+        verts, mesh_faces = config2_mesh('cuda')
+        grid = kt.ops.conversions.trianglemeshes_to_voxelgrids(
+            verts[:1], mesh_faces, VOX_RES)[0]
+        t0 = time.perf_counter()
+        tl.add_pointcloud_batch(iteration=0, category='config3',
+                                pointcloud_list=[cloud])
+        out['cloud_ms'] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        tl.add_voxelgrid_batch(iteration=0, category='voxels',
+                               voxelgrid_list=[grid])
+        out['grid_ms'] = (time.perf_counter() - t0) * 1e3
+        log(f'[usd] add_pointcloud_batch of config 3\'s {M3_N} points '
+            f'{out["cloud_ms"]:.1f} ms, add_voxelgrid_batch of a '
+            f'{VOX_RES}^3 grid ({int((grid > 0.5).sum())} cells) '
+            f'{out["grid_ms"]:.1f} ms (host)')
+
+        def same(got, ref, dtype):
+            return (got.device.type == 'cuda' and got.dtype == dtype
+                    and torch.equal(got, ref))
+
+        t0 = time.perf_counter()
+        ok = True
+        back = {}
+        for i in range(sc.batch):
+            stage = usd.Stage.load(os.path.join(logdir, 'config2',
+                                                f'mesh_{i}.usda'))
+            for it in USD_CHECKPOINTS:
+                mesh = usd.import_mesh(stage, time=it, device='cuda')
+                back[it, i] = mesh.vertices
+                ok = ok and same(mesh.vertices, written[it][i],
+                                 torch.float32) and same(
+                    mesh.faces, faces, torch.int64)
+        out['read_meshes_ms'] = (time.perf_counter() - t0) * 1e3
+        pc = usd.import_pointcloud(os.path.join(logdir, 'config3',
+                                                'pointcloud_0.usda'),
+                                   time=0, device='cuda')
+        vg = usd.import_voxelgrid(os.path.join(logdir, 'voxels',
+                                               'voxelgrid_0.usda'),
+                                  time=0, device='cuda')
+        ok_pc = same(pc.points, cloud, torch.float32)
+        ok_vg = same(vg, grid > 0.5, torch.bool)
+        log(f'[usd] read back on the card: the meshes at every '
+            f'checkpoint bit-equal {ok} ({out["read_meshes_ms"]:.1f} ms), '
+            f'the cloud {ok_pc}, the grid {ok_vg}')
+        expect(ok and ok_pc and ok_vg, 'usd: a checkpoint reads back '
+               'otherwise than written')
+
+        last = written[USD_CHECKPOINTS[-1]]
+        for ext in ('usda', 'usdc'):
+            path = os.path.join(tmp, f'config2.{ext}')
+            t0 = time.perf_counter()
+            usd.export_meshes(path, vertices=list(last),
+                              faces=[faces] * sc.batch)
+            write_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            meshes = usd.import_meshes(path, device='cuda')
+            torch.cuda.synchronize()
+            read_ms = (time.perf_counter() - t0) * 1e3
+            exact = len(meshes) == sc.batch and all(
+                same(m.vertices, last[i], torch.float32)
+                and same(m.faces, faces, torch.int64)
+                for i, m in enumerate(meshes))
+            out[ext] = dict(write_ms=write_ms, read_ms=read_ms,
+                            bytes=os.path.getsize(path))
+            log(f'[usd] export_meshes of config 2\'s {sc.batch} meshes to '
+                f'.{ext}: ' + json.dumps(out[ext])
+                + f', read back bit-equal {exact}')
+            expect(exact, f'usd: the .{ext} export reads back otherwise')
+
+        reset_counters()
+        idx = usd_render_idx(sc, torch.stack(
+            [back[USD_CHECKPOINTS[-1], i] for i in range(sc.batch)]))
+        check_launches('usd render', read_counters('usd render path'),
+                       ('rasterize_interp', 'soft_mask_forward'))
+        ref_idx = usd_render_idx(sc, last)
+        same_idx = torch.equal(idx, ref_idx)
+        log(f'[usd] the re-imported meshes rendered: face_idx equal to the '
+            f'render of the vertices written {same_idx}, coverage '
+            f'{float((idx >= 0).float().mean()):.4f}')
+        expect(same_idx, 'usd: the re-imported mesh renders otherwise')
+
+        helper = dash3d_util.StreamingGeometryHelper(logdir)
+        payload, snap = helper.parse_encode_mesh('config2', 0, 12)
+        head = np.array([0, 0, int(snap), 0], np.int32).tobytes()
+        msg = dash3d_util.decode_binary_message(
+            head + payload)
+        item = msg['items'][0]
+        ok_view = (snap == 10 and len(msg['items']) == 1
+                   and np.array_equal(item['vertices'],
+                                      written[10][0].cpu().numpy())
+                   and np.array_equal(item['faces'], faces.cpu().numpy()))
+        log(f'[usd] dash3d mesh payload at time 12: snapped to {snap}, '
+            f'{len(payload)} bytes, decoded to the arrays written {ok_view}')
+        expect(ok_view, 'usd: the viewer\'s payload decodes otherwise')
+
+        mat = kt.io.materials.PBRMaterial(
+            name='skin', diffuse_color=(0.8, 0.5, 0.2), roughness_value=0.4,
+            metallic_value=0.1, is_specular_workflow=True)
+        mat_path = os.path.join(tmp, 'material.usda')
+        mat.write_to_usd(mat_path, '/World/Looks/skin')
+        mat_back = kt.io.materials.PBRMaterial.read_from_usd(
+            mat_path, '/World/Looks/skin', device='cuda')
+        ok_mat = mat_back.to_dict() == mat.to_dict()
+        log(f'[usd] a material with values only round-tripped {ok_mat}; '
+            f'PIL imported {"PIL" in sys.modules}, tornado imported '
+            f'{"tornado" in sys.modules}')
+        expect(ok_mat, 'usd: the material round trip differs')
+        expect(pil_before or 'PIL' not in sys.modules,
+               'usd: the phase imported PIL')
+        expect('tornado' not in sys.modules, 'usd: the phase imported tornado')
+    log('[usd] times: ' + json.dumps(out))
+    log(card_line())
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device visible', file=sys.stderr)
@@ -4408,6 +4592,7 @@ def main():
     par1_times = parallel_world1(scenes[0])
     par2_backend, par2_times = parallel_world2(scenes)
     io_phase(scenes[0])
+    usd_phase(scenes[1])
 
     main = scenes[0]
     rows = []

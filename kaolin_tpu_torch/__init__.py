@@ -7,7 +7,8 @@ inputs: a CUDA tensor runs a hand-written Hopper kernel (built from
 version beside it. Scene preprocessing (octree builds, voxelization, OBJ
 parsing) runs on the host in ``native``'s library, built from
 ``csrc/core.cpp`` with ``g++`` at first use. Importing the package needs
-no GPU, compiler, ``triton`` or PIL.
+no GPU, compiler, ``triton``, PIL or tornado (the dash3d viewer's
+server, ``experimental.dash3d``, imports it when it starts).
 """
 
 from . import io
@@ -19,5 +20,6 @@ from . import parallel
 from . import render
 from . import rep
 from . import utils
+from . import visualize
 
 __version__ = '0.1.0'

@@ -1,8 +1,7 @@
-"""3D file I/O: OBJ, OFF, materials, synthetic views and datasets. Port
-of ``kaolin_tpu/io`` without ``usd`` (USDA/USDC), which the port does not
-have yet. Loaders return tensors on ``device='cuda'`` unless the caller
-names another device; PIL is imported only where an image is read or
-written."""
+"""3D file I/O: OBJ, OFF, USD (usda and usdc), materials, synthetic views
+and datasets. Port of ``kaolin_tpu/io``. Loaders return tensors on
+``device='cuda'`` unless the caller names another device; PIL is imported
+only where an image is read or written."""
 
 from . import dataset
 from . import materials
@@ -12,4 +11,5 @@ from . import off
 from . import render
 from . import shapenet
 from . import shrec
+from . import usd
 from . import utils

@@ -2,9 +2,9 @@
 
 Port of ``kaolin_tpu/io/materials.py`` (reference
 ``kaolin/io/materials.py:36-763``). Textures are (C, H, W) tensors; PIL is
-imported only where an image is read or written. The USD methods import
-``.usd`` when called: the port has no USD module yet, so they raise
-``ImportError``. The OBJ material round-trip uses the public PBR extension
+imported only where an image is read or written. The USD methods go
+through ``.usd`` (a material with values only needs no PIL). The OBJ
+material round-trip uses the public PBR extension
 tags of .mtl (Pr/Pm/Pc/Pcr/norm/...); the reference declares
 ``write_to_obj``/``read_from_obj`` abstract (``materials.py:240-244``).
 """
@@ -226,8 +226,8 @@ class PBRMaterial(Material):
     # --- USD -------------------------------------------------------------
     def write_to_usd(self, file_path, scene_path, texture_dir='.',
                      bound_prims=None):
-        """Appends this material to a USDA file through ``.usd``'s
-        ``add_material`` (``ImportError`` until the port has it)."""
+        """Appends this material to a USD file through
+        :func:`kaolin_tpu_torch.io.usd.add_material`."""
         from . import usd
         return usd.add_material(file_path, scene_path, self,
                                 texture_dir=texture_dir,
@@ -235,10 +235,13 @@ class PBRMaterial(Material):
 
     @classmethod
     def read_from_usd(cls, file_path, scene_path, texture_path=None,
-                      time=None):
+                      time=None, device='cuda'):
+        """Reads a material written by :meth:`write_to_usd` (or a pxr
+        UsdPreviewSurface tree), its textures on ``device``."""
         from . import usd
         return usd.import_material(file_path, scene_path,
-                                   texture_path=texture_path, time=time)
+                                   texture_path=texture_path, time=time,
+                                   device=device)
 
     # --- OBJ / MTL -------------------------------------------------------
     def write_to_obj(self, obj_dir=None, texture_dir=None,
@@ -414,15 +417,16 @@ class MaterialManager:
 
     @classmethod
     def read_usd_material(cls, stage, material_path, texture_path=None,
-                          time=None):
+                          time=None, device='cuda'):
         r"""Reads a material prim from an open stage (reference
-        ``materials.py:176``) through ``.usd`` (``ImportError`` until the
-        port has it). Dispatches on the surface shader's ``info:id``
+        ``materials.py:176``) through ``.usd``, its textures on
+        ``device``. Dispatches on the surface shader's ``info:id``
         through the registered readers.
         """
         from . import usd
         return usd._import_material_from_stage(
-            stage, material_path, texture_path=texture_path, time=time)
+            stage, material_path, texture_path=texture_path, time=time,
+            device=device)
 
 
 # UsdPreviewSurface belongs to the USD module (it needs stage access to

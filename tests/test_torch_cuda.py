@@ -1352,3 +1352,28 @@ def test_spc_traverse_budget_and_syncs(cuda, level, monkeypatch):
         assert out[3:] == ref[3:]
     assert _sync_count(lambda: kst.traverse(octree, exsum, ph, o, d,
                                             level)) == 1
+
+
+def test_usd_cuda_round_trip(cuda, tmp_path):
+    """USD files written from CUDA tensors that require grad, in ``.usda``
+    and ``.usdc``, read back onto the card bit-equal, in float32, int64
+    and bool."""
+    usd = kt.io.usd
+    rng = np.random.default_rng(14)
+    v = torch.tensor(rng.standard_normal((40, 3)), dtype=torch.float32,
+                     device=cuda, requires_grad=True)
+    f = torch.tensor(rng.integers(0, 40, (70, 3)), device=cuda)
+    grid = torch.tensor(rng.random((9, 9, 9)) > 0.6, device=cuda)
+    for ext in ('usda', 'usdc'):
+        path = str(tmp_path / f'c.{ext}')
+        usd.export_mesh(path, vertices=v, faces=f, time=1)
+        usd.export_pointcloud(path, v * 2, colors=v.abs())
+        usd.export_voxelgrid(path, grid)
+        mesh = usd.import_mesh(path, time=1)
+        cloud = usd.import_pointcloud(path)
+        back = usd.import_voxelgrid(path)
+        for got, ref in ((mesh.vertices, v), (mesh.faces, f),
+                         (cloud.points, v * 2), (cloud.colors, v.abs()),
+                         (back, grid)):
+            assert got.device.type == 'cuda' and got.dtype == ref.dtype
+            assert torch.equal(got, ref.detach())

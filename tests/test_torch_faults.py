@@ -173,7 +173,16 @@ DELIBERATE = {
         'io.shapenet.ShapeNetV2.__init__',
         'io.shrec.SHREC16.__init__',
         'utils.checkpoint.load_pytree',
-        'utils.checkpoint.CheckpointManager.restore'), _DEVICE),
+        'utils.checkpoint.CheckpointManager.restore',
+        'io.usd.import_mesh',
+        'io.usd.import_meshes',
+        'io.usd.import_pointcloud',
+        'io.usd.import_pointclouds',
+        'io.usd.import_voxelgrid',
+        'io.usd.import_voxelgrids',
+        'io.usd.import_material',
+        'io.materials.PBRMaterial.read_from_usd',
+        'io.materials.MaterialManager.read_usd_material'), _DEVICE),
     # the process group's backend: 'nccl' for the card, 'gloo' where the
     # caller asks for it (JAX picks its runtime itself)
     'parallel.distributed.init_distributed': ({'backend'}, set(), {}),
@@ -201,16 +210,27 @@ DELIBERATE = {
 def _counterparts():
     """(path, port function, kaolin_tpu function) for every public
     function and public method of a public class of ``kaolin_tpu_torch``
-    whose module and name ``kaolin_tpu`` also has."""
+    whose module and name ``kaolin_tpu`` also has; a module without
+    ``__all__`` offers the public functions and classes it defines. A
+    ``__main__`` module is not imported (``kaolin_tpu``'s dash3d one
+    starts its server)."""
     pairs = []
     for info in pkgutil.walk_packages(kt.__path__, 'kaolin_tpu_torch.'):
+        if info.name.rpartition('.')[2] == '__main__':
+            continue
         mod = importlib.import_module(info.name)
         rel = info.name[len('kaolin_tpu_torch.'):]
         try:
             jmod = importlib.import_module('kaolin_tpu.' + rel)
         except ImportError:
             continue
-        for name in getattr(mod, '__all__', ()):
+        names = getattr(mod, '__all__', None)
+        if names is None:
+            names = [n for n, o in vars(mod).items()
+                     if not n.startswith('_')
+                     and getattr(o, '__module__', None) == mod.__name__
+                     and (inspect.isroutine(o) or isinstance(o, type))]
+        for name in names:
             obj, jobj = getattr(mod, name), getattr(jmod, name, None)
             if jobj is None:
                 continue
@@ -249,6 +269,33 @@ def test_signatures_match_kaolin_tpu():
         seen.add(path)
     assert set(DELIBERATE) <= seen, ('listed but not found: '
                                      f'{set(DELIBERATE) - seen}')
+
+
+def test_signatures_cover_io_and_viewer():
+    """The USD modules, ``Timelapse`` and the dash3d viewer are among the
+    functions the signature check holds."""
+    paths = {path for path, _, _ in _counterparts()}
+    for path in ('io.usd.export_mesh', 'io.usd.import_voxelgrid',
+                 'io.usd.add_material', 'io.usdc.write_usdc',
+                 'io.usdc.read_usdc',
+                 'visualize.timelapse.Timelapse.add_mesh_batch',
+                 'visualize.timelapse.TimelapseParser.check_for_updates',
+                 'experimental.dash3d.run.create_server',
+                 'experimental.dash3d.util.meshes_to_binary',
+                 'experimental.dash3d.util.StreamingGeometryHelper.'
+                 'parse_encode_mesh'):
+        assert path in paths, path
+
+
+def test_voxel_order_matches_kaolin_tpu():
+    """``render.spc.raytrace`` exports ``VOXEL_ORDER``, kaolin_tpu's
+    table, as the one the traversal kernel's module holds."""
+    from kaolin_tpu_torch.kernels import spc_traverse
+    from kaolin_tpu_torch.render.spc import raytrace
+    assert raytrace.VOXEL_ORDER == kal.render.spc.raytrace.VOXEL_ORDER
+    assert raytrace.VOXEL_ORDER is spc_traverse.VOXEL_ORDER
+    assert len(raytrace.VOXEL_ORDER) == 8 and all(
+        sorted(row) == list(range(8)) for row in raytrace.VOXEL_ORDER)
 
 
 def _mesh_args(dim=2):

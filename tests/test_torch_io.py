@@ -23,6 +23,7 @@ import kaolin_tpu_torch as kt
 from test_io import REF_SAMPLES
 from kaolin_tpu_torch.io import obj, off, utils as io_utils
 from kaolin_tpu_torch.io.materials import (MaterialFileError,
+                                           MaterialLoadError,
                                            MaterialManager,
                                            MaterialNotFoundError,
                                            PBRMaterial)
@@ -199,7 +200,8 @@ def test_pbr_material_obj_roundtrip(tmp_path):
     """``write_to_obj`` then ``read_from_obj`` (values, textures through
     PNG, the normal map's [-1, 1]), against ``kaolin_tpu`` reading the
     same library; ``to_dict`` / ``from_dict``; the manager's .mtl reader;
-    the USD methods need the USD module, which the port lacks yet."""
+    the USD methods' round trip, against ``kaolin_tpu`` reading the same
+    USD file."""
     rng = np.random.default_rng(2)
     tex = torch.tensor(rng.random((3, 6, 5)), dtype=torch.float32)
     nrm = torch.tensor(rng.uniform(-1, 1, (3, 6, 5)), dtype=torch.float32)
@@ -233,10 +235,21 @@ def test_pbr_material_obj_roundtrip(tmp_path):
         MaterialManager.register_obj_reader(default)
     assert via.diffuse_color == out.diffuse_color
     assert torch.equal(via.diffuse_texture, out.diffuse_texture)
-    with pytest.raises(ImportError):
-        mat.write_to_usd(str(tmp_path / 'm.usda'), '/World/Looks/m0')
-    with pytest.raises(ImportError):
-        MaterialManager.read_from_file(str(tmp_path / 'm.usda'), '/World')
+    usd_path = str(tmp_path / 'm.usda')
+    mat.write_to_usd(usd_path, '/World/Looks/m0')
+    back = PBRMaterial.read_from_usd(usd_path, '/World/Looks/m0',
+                                     device='cpu')
+    ref = jio.materials.PBRMaterial.read_from_usd(usd_path, '/World/Looks/m0')
+    bd, rd = back.to_dict(), ref.to_dict()
+    assert list(bd) == list(rd)
+    for k in rd:
+        if isinstance(rd[k], np.ndarray):
+            np.testing.assert_array_equal(rd[k], bd[k])
+        else:
+            assert rd[k] == bd[k], k
+    assert back.diffuse_texture is not None
+    with pytest.raises(MaterialLoadError):
+        MaterialManager.read_from_file(usd_path, 'World')
 
 
 def _png(path, arr):

@@ -199,7 +199,7 @@ def test_import_leaves_jax_out():
     code = ('import sys, kaolin_tpu_torch; '
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "kaolin_tpu", "__graft_entry__", "scipy", '
-            '"PIL")]; '
+            '"PIL", "tornado")]; '
             'print(bad); sys.exit(1 if bad else 0)')
     res = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -234,7 +234,11 @@ def test_port_sources_import_no_jax():
                 'parallel/metrics', 'parallel/spc', 'parallel/launch',
                 'io/utils', 'io/materials', 'io/obj', 'io/off', 'io/render',
                 'io/dataset', 'io/modelnet', 'io/shapenet', 'io/shrec',
-                'utils/testing', 'utils/checkpoint'):
+                'utils/testing', 'utils/checkpoint', 'io/usd', 'io/usdc',
+                'visualize/__init__', 'visualize/timelapse',
+                'experimental/__init__', 'experimental/dash3d/__init__',
+                'experimental/dash3d/__main__', 'experimental/dash3d/run',
+                'experimental/dash3d/util'):
         assert f'kaolin_tpu_torch/{mod}.py' in rel, mod
     for path in files:
         for mod in _imports(path):
