@@ -7,13 +7,18 @@ vertices and the SDF values, and the regular tet grid. Port of
   SDF's values, vertices interpolated with tensor operations;
 - :func:`marching_tetrahedra_fixed`: fixed shapes, vertices on every edge
   of the grid (masked to the crossings) and two faces per tetrahedron with
-  a validity mask.
+  a validity mask. Its grid's edges are found on the host; a loop over one
+  grid makes them once with :func:`tet_topology` and passes that in place
+  of the tets.
 """
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-__all__ = ['marching_tetrahedra', 'marching_tetrahedra_fixed', 'tet_grid']
+__all__ = ['marching_tetrahedra', 'marching_tetrahedra_fixed', 'tet_grid',
+           'TetTopology', 'tet_topology']
 
 # kaolin/ops/conversions/tetmesh.py:20-40
 TRIANGLE_TABLE = np.array([
@@ -55,10 +60,43 @@ def _host(a):
 
 
 def _grid_edges(tets_np):
-    """Unique sorted edges of the tet grid + per-tet edge->unique map."""
+    """Unique sorted edges of the tet grid + per-tet edge->unique map (in
+    the order of ``np.unique(..., axis=0)``: an edge (a, b), a < b, is
+    keyed by a * n + b)."""
     all_edges = np.sort(tets_np[:, BASE_TET_EDGES].reshape(-1, 2), axis=1)
-    unique_edges, idx_map = np.unique(all_edges, axis=0, return_inverse=True)
+    n = int(all_edges.max()) + 1 if all_edges.size else 1
+    keys, idx_map = np.unique(all_edges[:, 0] * n + all_edges[:, 1],
+                              return_inverse=True)
+    unique_edges = np.stack([keys // n, keys % n], axis=1)
     return unique_edges, idx_map.reshape(-1, 6)
+
+
+class TetTopology(NamedTuple):
+    """A tet grid's fixed topology on a device, for
+    :func:`marching_tetrahedra_fixed`."""
+    tets: torch.Tensor        # (T, 4) int64
+    edge0: torch.Tensor       # (E,) int64, first vertex of each edge
+    edge1: torch.Tensor       # (E,) int64
+    idx_map6: torch.Tensor    # (T, 6) int64, each tet's edges
+    num_triangles: torch.Tensor   # NUM_TRIANGLES_TABLE
+    triangles: torch.Tensor       # TRIANGLE_TABLE
+    bits: torch.Tensor            # (4,) [1, 2, 4, 8]
+
+
+def tet_topology(tets, device):
+    """The edges and tables that :func:`marching_tetrahedra_fixed` needs for
+    the tets ``tets`` (T, 4), found on the host once and put on
+    ``device``."""
+    tets_np = _host(tets).astype(np.int64)
+    unique_edges, idx_map6 = _grid_edges(tets_np)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    return TetTopology(t(tets_np), t(unique_edges[:, 0]),
+                       t(unique_edges[:, 1]), t(idx_map6),
+                       t(NUM_TRIANGLES_TABLE), t(TRIANGLE_TABLE),
+                       t(np.array([1, 2, 4, 8], dtype=np.int64)))
 
 
 def _interp_verts(vertices, sdf, edges):
@@ -143,7 +181,8 @@ def marching_tetrahedra_fixed(vertices, tets, sdf):
 
     Args:
         vertices: (num_vertices, 3) (unbatched).
-        tets: (num_tetrahedrons, 4) host numpy int array (fixed topology).
+        tets: (num_tetrahedrons, 4) host numpy int array (fixed topology),
+            or its :func:`tet_topology`.
         sdf: (num_vertices,).
 
     Returns:
@@ -152,12 +191,11 @@ def marching_tetrahedra_fixed(vertices, tets, sdf):
         into the edge-vertex array; faces_mask (2*T,) bool; tet_idx (2*T,)
         int32).
     """
+    topo = tets if isinstance(tets, TetTopology) \
+        else tet_topology(tets, vertices.device)
     dev = vertices.device
-    tets_np = _host(tets).astype(np.int64)
-    unique_edges, idx_map6 = _grid_edges(tets_np)
-    T = tets_np.shape[0]
-    e0 = torch.as_tensor(unique_edges[:, 0], device=dev)
-    e1 = torch.as_tensor(unique_edges[:, 1], device=dev)
+    T = topo.tets.shape[0]
+    e0, e1 = topo.edge0, topo.edge1
 
     sa, sb = sdf[e0], sdf[e1]
     crossing = (sa > 0) != (sb > 0)
@@ -169,12 +207,11 @@ def marching_tetrahedra_fixed(vertices, tets, sdf):
     wb = torch.where(crossing, sa / denom, half)
     verts = va * wa[:, None] + vb * wb[:, None]
 
-    occ = (sdf[torch.as_tensor(tets_np, device=dev)] > 0).to(torch.int64)
-    tetindex = torch.sum(occ * torch.tensor([1, 2, 4, 8], device=dev), dim=-1)
-    ntri = torch.as_tensor(NUM_TRIANGLES_TABLE, device=dev)[tetindex]
-    local = torch.as_tensor(TRIANGLE_TABLE, device=dev)[tetindex]   # (T, 6)
-    gidx = torch.gather(torch.as_tensor(idx_map6, device=dev), 1,
-                        local.clamp(min=0))                          # (T, 6)
+    occ = (sdf[topo.tets] > 0).to(torch.int64)
+    tetindex = torch.sum(occ * topo.bits, dim=-1)
+    ntri = topo.num_triangles[tetindex]
+    local = topo.triangles[tetindex]                                 # (T, 6)
+    gidx = torch.gather(topo.idx_map6, 1, local.clamp(min=0))        # (T, 6)
     faces = gidx.reshape(T * 2, 3).to(torch.int32)
     faces_mask = torch.stack([ntri >= 1, ntri >= 2], dim=1).reshape(-1)
     tet_idx = torch.arange(T, dtype=torch.int32,

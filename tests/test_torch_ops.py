@@ -238,13 +238,31 @@ def test_port_sources_import_no_jax():
                 'visualize/__init__', 'visualize/timelapse',
                 'experimental/__init__', 'experimental/dash3d/__init__',
                 'experimental/dash3d/__main__', 'experimental/dash3d/run',
-                'experimental/dash3d/util'):
+                'experimental/dash3d/util', 'examples/__init__',
+                'examples/utils', 'examples/spline', 'examples/spline_mesh',
+                'examples/renderer', 'examples/fish', 'examples/dibr_train',
+                'examples/nglod_train', 'examples/dmtet_train',
+                'examples/visualize_main',
+                *(f'examples/recipes/{r}' for r in (
+                    'camera/camera_coordinate_systems',
+                    'camera/camera_init_explicit',
+                    'camera/camera_init_simple', 'camera/camera_movement',
+                    'camera/camera_opengl_shaders',
+                    'camera/camera_properties', 'camera/camera_ray_tracing',
+                    'camera/camera_transforms',
+                    'camera/cameras_differentiable',
+                    'dataload/spc_from_pointcloud',
+                    'preprocess/fast_mesh_sampling',
+                    'preprocess/occupancy_sampling', 'spc/spc_basics',
+                    'spc/spc_conv3d_example', 'spc/spc_dual_octree',
+                    'spc/spc_trilinear_interp'))):
         assert f'kaolin_tpu_torch/{mod}.py' in rel, mod
     for path in files:
         for mod in _imports(path):
             top = mod.split('.')[0]
             assert top not in ('jax', 'jaxlib', 'kaolin_tpu',
-                               '__graft_entry__', 'scipy'), (path, mod)
+                               '__graft_entry__', 'scipy', 'optax',
+                               'examples'), (path, mod)
 
 
 def _c_entry_points():
