@@ -171,6 +171,21 @@ forward kernels counted); decodes the dash3d helper's mesh payload; and
 round-trips a material with values only. It logs the host ms of each
 write and read and the files' bytes, and needs neither PIL nor tornado.
 
+Before the module phases: ``casts`` holds every function whose float ->
+int cast follows XLA's rule (``kaolin_tpu_torch.casts.to_int``) on NaN,
+inf and out-of-range inputs, card against CPU, and the grid-sample
+kernels against their plain versions on sampler coords with NaN and
++-inf; ``coverage`` runs every entry of ``chip_coverage.py``'s table (the
+port's public functions and classes that take tensors) once on the card
+and once on the CPU and prints a line a module; ``c5_spec_phase`` traces
+config 5 at its spec size (level 10, 1024^2 rays, ``bench_raytrace.py``)
+in the arrays and ``ray_fn`` forms against the plain traversal, a band of
+rows against the CPU, and runs the pack ops on the hits;
+``face_sweep_phase`` runs ``bench_suite.py:137-180``'s face sweep (batch
+1, 512^2, 1,280 to 81,920 faces: rows 1, 3, 4 and 5 against their plain
+versions, the lists' counts, the train step timed). ``--coverage`` runs
+the first two alone, ``--sizes`` the last two.
+
 Last, ``examples`` runs the applications of ``kaolin_tpu_torch.examples``
 on the card at the JAX examples' own sizes: the fish self-fit (128^2,
 lod 16 x 8, 100 / 50 / 20 epochs, texture 64), DIB-R (150 steps, 256^2,
@@ -226,6 +241,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile, schedule
 
+import chip_coverage
 import kaolin_tpu_torch as kt
 from kaolin_tpu_torch.experimental.dash3d import util as dash3d_util
 from kaolin_tpu_torch.kernels import _build
@@ -243,7 +259,8 @@ from kaolin_tpu_torch.parallel import mesh as par_mesh
 from kaolin_tpu_torch.parallel import spc as par_spc
 from kaolin_tpu_torch.render.mesh.dibr import _scaled_inputs
 from kaolin_tpu_torch.render.mesh.rasterization import _kernel_inputs
-from kaolin_tpu_torch.render.mesh.utils import _clip, _uv_coords
+from kaolin_tpu_torch.render.mesh.utils import _clip, _sampler_coords
+from kaolin_tpu_torch.render.mesh.utils import _uv_coords
 
 SEED = 0
 H = W = 512
@@ -746,7 +763,8 @@ def kernel_phases(sc):
              soft_bound(sc, idx_main, KNUM))):
         times[name] = dict(ms=time_ms(fn, TIME_ITERS),
                            device_ms=device_ms(f'[{sc.name}] {name}', fn),
-                           plain_ms=time_ms(plain, plain_iters),
+                           plain_ms=time_ms(plain, plain_iters,
+                                            warmup=plain_iters > 1),
                            bound_ms=bnd[0], bound_by=bnd[1])
         log(f'[{sc.name}] time {name}: ' + json.dumps(times[name]))
     return errs, times
@@ -908,7 +926,8 @@ def backward_phases(sc):
     def timed(key, fn, plain, bnd, plain_batch):
         times[key] = dict(ms=time_ms(fn, TIME_ITERS),
                           device_ms=device_ms(f'[{sc.name}] {key}', fn),
-                          plain_ms=time_ms(plain, plain_iters),
+                          plain_ms=time_ms(plain, plain_iters,
+                                           warmup=plain_iters > 1),
                           bound_ms=bnd[0], bound_by=bnd[1])
         log(f'[{sc.name}] time {key} (train cotangents; plain version at '
             f'batch {plain_batch}): ' + json.dumps(times[key]))
@@ -2408,9 +2427,12 @@ def metrics_kernel_phases():
             'within the winner\'s distance)')
     scene_times = p2m_times('config3', scenes)
 
-    lib = cdist_argmin(p1, p2)
+    # one call, timed and checked (12.5 s at config 3)
+    libs = []
+    lib_ms = time_ms(lambda: libs.append(cdist_argmin(p1, p2)), 1,
+                     warmup=False)
+    lib = libs[0]
     e_lib = int((lib.to(torch.int32) != kn.nearest_idx(p1, p2)).sum())
-    lib_ms = time_ms(lambda: cdist_argmin(p1, p2), 1, warmup=False)
     log(f'[config3] torch.cdist + argmin vs nearest_idx: {e_lib} index '
         'mismatches (cdist takes a square root and sums in its own order); '
         f'{lib_ms:.1f} ms, the library time of both NN rows')
@@ -3726,6 +3748,450 @@ def module_phases(rays):
     return times, launches
 
 
+
+# --------------------------- XLA's cast rule, every public name, the largest
+# configurations: the casts, coverage, config 5 at its spec size and the
+# face sweep
+
+# config 5 at its spec size (BASELINE.json, bench_raytrace.py --level 10
+# --res 1024): C5_N points quantized at C5_SPEC_LEVEL, C5_SPEC_RES^2 rays;
+# the band is the rows C5_BAND of the image, through the sphere (rows 0-63
+# miss it: the sphere spans about rows 264-760)
+C5_SPEC_LEVEL, C5_SPEC_RES, C5_BAND = 10, 1024, (480, 544)
+C5_SPEC_ITERS = 5
+# the face sweep (bench_suite.py:137-180): batch 1 at H x W, icosphere
+# subdivisions SWEEP_SUBDIVS (1,280 to 81,920 faces)
+SWEEP_SUBDIVS = (3, 4, 5, 6)
+SWEEP_ITERS = 10
+# above SWEEP_FULL_FACES faces rows 1, 3 and 5 are held against their
+# plain versions on the rows SWEEP_SLAB (through the mesh's centre): on
+# the whole image the soft mask's plain backward took 21.7 s a call at
+# 81,920 faces (NVIDIA H100 80GB HBM3, 700.00 W)
+SWEEP_FULL_FACES, SWEEP_SLAB = 20_480, (224, 288)
+# the rows of the render's train step (prepare_vertices ->
+# dibr_rasterization -> backward to the vertices)
+SWEEP_KERNELS = ('rasterize_interp', 'soft_mask_forward',
+                 'rasterize_backward', 'soft_mask_backward')
+
+
+def _nan_err(a, b):
+    """chip_coverage's error: the largest difference over the largest
+    finite |value| of ``b``, inf where NaN or inf positions differ."""
+    return chip_coverage._err(a, b.cpu())
+
+
+def nan_atomic_close(label, out, maps, ix, iy, cot, mode):
+    """atomic_close's rule for a texture gradient on the finite entries of
+    the float64 plain version's (GRAD_TOL of the entry and of the median
+    nonzero entry, plus TOL_ATOMIC of its terms' magnitudes); the entries
+    it has NaN must be NaN in ``out``. Returns the worst entry's share of
+    its tolerance."""
+    f64 = [t.double() for t in (maps, ix, iy, cot)]
+    ref = ktex.grid_sample_backward_plain(*f64, mode)[0]
+    mass = ktex.grid_sample_backward_plain(*f64[:3], f64[3].abs(), mode)[0]
+    fin = torch.isfinite(ref)
+    same_nan = bool(torch.equal(torch.isnan(out), torch.isnan(ref)))
+    r = ref[fin].abs()
+    nonzero = r[r != 0]
+    med = float(nonzero.median()) if nonzero.numel() else 0.
+    tol = (GRAD_TOL * (r + med) + TOL_ATOMIC * mass[fin]).clamp(min=1e-300)
+    ratio = float(((out.double()[fin] - ref[fin]).abs() / tol).max())
+    log(f'{label}: texture gradient NaN on the float64 plain version\'s '
+        f'texels {same_nan} ({int((~fin).sum())}); worst finite entry at '
+        f'{ratio:.3e} of its tolerance {GRAD_TOL:g} * (|ref| + median) + '
+        f'{TOL_ATOMIC:g} * magnitude')
+    expect(same_nan and med > 0. and ratio <= 1.,
+           f'{label}: texture gradient out of tolerance')
+    return ratio
+
+
+def _bad_grid(b, n, device):
+    """(b, n, 1, 2) grid coords in [-1.2, 1.2] with NaN, +-inf and
+    out-of-range entries in a seeded tenth of the rows."""
+    rng = np.random.default_rng(SEED)
+    g = rng.uniform(-1.2, 1.2, (b, n, 1, 2))
+    bad = rng.random((b, n, 1, 2)) < 0.1
+    g[bad] = rng.choice([np.nan, np.inf, -np.inf, 7.5, -4.25], int(bad.sum()))
+    return torch.tensor(g, dtype=torch.float32, device=device)
+
+
+def casts_phase():
+    """XLA's float -> int rule (``kaolin_tpu_torch.casts.to_int``) on the
+    card: each function whose cast goes through it on NaN, +-inf and
+    out-of-range inputs, card against CPU (integers and voxels equal,
+    floats to 1e-5 of the largest finite value, NaN where the CPU has
+    NaN); then the grid-sample kernels (rows 6-7) against their plain
+    versions on the sampler coords of a grid with NaN and +-inf entries:
+    values and coordinate gradients the same bits, the texture gradient by
+    the texture phases' rule (nan_atomic_close)."""
+    t0 = time.perf_counter()
+    vals = [float('nan'), float('inf'), -float('inf'), 3e9, -3e9, 0.5, -0.5,
+            -1.5, 2.5, 1e19, -1e19, 40000., -40000.]
+    errs = {}
+
+    def both(label, fn, tol=1e-5):
+        card, cpu = fn('cuda'), fn('cpu')
+        flat_a = card if isinstance(card, (list, tuple)) else (card,)
+        flat_b = cpu if isinstance(cpu, (list, tuple)) else (cpu,)
+        worst = 0.
+        for a, c in zip(flat_a, flat_b):
+            expect(a.device.type == 'cuda', f'[casts] {label}: an output '
+                   f'on {a.device}')
+            if a.is_floating_point():
+                worst = max(worst, _nan_err(a, c))
+            else:
+                expect(torch.equal(a.cpu(), c), f'[casts] {label}: integer '
+                       'outputs differ from the CPU')
+        errs[label] = worst
+        expect(worst <= tol, f'[casts] {label}: card vs CPU {worst:.3e} '
+               f'above {tol}')
+
+    for dt in (torch.int16, torch.int32, torch.int64):
+        both(f'to_int {dt}', lambda dev, dt=dt: kt.casts.to_int(
+            torch.tensor(vals, device=dev), dt))
+    tex = torch.tensor(np.random.default_rng(1).normal(size=(2, 3, 16, 16)),
+                       dtype=torch.float32)
+    grid = _bad_grid(2, 500, 'cpu')
+    cot = torch.tensor(np.random.default_rng(2).normal(size=(2, 3, 500, 1)),
+                       dtype=torch.float32)
+
+    def sampled(dev, mode, uv):
+        m = tex.to(dev).requires_grad_(True)
+        g = grid.to(dev).requires_grad_(True)
+        if uv:
+            out = kt.render.mesh.texture_mapping(g[:, :, 0] * 0.5 + 0.5, m,
+                                                 mode)
+            c = cot.to(dev)[..., 0].transpose(1, 2)
+        else:
+            out = kt.render.mesh.grid_sample_2d(m, g, mode)
+            c = cot.to(dev)
+        gm, gg = torch.autograd.grad(out, [m, g], c)
+        return out.detach(), gm, gg
+
+    for mode in ('nearest', 'bilinear'):
+        both(f'grid_sample_2d {mode}', lambda dev: sampled(dev, mode, False))
+        both(f'texture_mapping {mode}', lambda dev: sampled(dev, mode, True))
+    clouds = {'nan point': [[[np.nan, .2, .3], [.5, .5, .5]]],
+              'inf point': [[[np.inf, .2, .3], [.5, -np.inf, .5],
+                             [.25, .5, .75]]],
+              'all equal': [[[.3, -.2, .7]] * 4],
+              'one point': [[[.3, -.2, .7]]]}
+    for name, pts in clouds.items():
+        both(f'pointclouds_to_voxelgrids, {name}', lambda dev, p=pts:
+             kt.ops.conversions.pointclouds_to_voxelgrids(
+                 torch.tensor(p, dtype=torch.float32, device=dev), 4))
+    bad = torch.tensor([[np.nan, 0., .5], [np.inf, -np.inf, .1],
+                        [3., -5., .99], [1e30, -1e30, np.nan]],
+                       dtype=torch.float32)
+    both('quantize_points', lambda dev: kt.ops.spc.quantize_points(
+        bad.to(dev), 10))
+    octree, _, _, exsum = kt.utils.interop.sphere_shell_spc(level=4, n=500)
+    both('unbatched_query', lambda dev: kt.ops.spc.unbatched_query(
+        octree.to(dev), exsum.to(dev), bad.to(dev), 4, True))
+    from kaolin_tpu_torch.examples import fish
+    verts = torch.tensor(np.random.default_rng(3).normal(size=(1, 20, 3)),
+                         dtype=torch.float32)
+    uvs = torch.tensor([[np.nan, .5], [np.inf, .2], [-np.inf, .3], [1.5, .5],
+                        [-.5, .5], [.5, 7.], [.25, .75]], dtype=torch.float32)
+    both('fish.position_by_uv', lambda dev: fish.position_by_uv(
+        verts.to(dev), 5, 4, uvs.to(dev)))
+
+    # the kernels on the clipped sampler coords of a grid with NaN and
+    # +-inf, at the textured step's texture size
+    big = torch.tensor(np.random.default_rng(4).normal(
+        size=(2, 3, TEX_SIZE, TEX_SIZE)), dtype=torch.float32, device='cuda')
+    g = _bad_grid(2, 65536, 'cuda')
+    ix, iy = _sampler_coords(g[..., 0], g[..., 1], TEX_SIZE, TEX_SIZE)
+    c = torch.tensor(np.random.default_rng(5).normal(size=(2, 65536, 3)),
+                     dtype=torch.float32, device='cuda')
+    nan_pts = int((ix.isnan() | iy.isnan()).sum())
+    for mode in ('bilinear', 'nearest'):
+        before = ktex.grid_sample.launches, ktex.grid_sample_backward.launches
+        out = ktex.grid_sample(big, ix, iy, mode)
+        ref = ktex.grid_sample_plain(big, ix, iy, mode)
+        dm, dx, dy = ktex.grid_sample_backward(big, ix, iy, c, mode)
+        rm, rx, ry = ktex.grid_sample_backward_plain(big, ix, iy, c, mode)
+        torch.cuda.synchronize()
+        launched = (ktex.grid_sample.launches - before[0],
+                    ktex.grid_sample_backward.launches - before[1])
+        same = [same_bits(a, b) for a, b in ((out, ref), (dx, rx), (dy, ry))]
+        log(f'[casts] grid_sample kernels, {mode}, 2 x 65536 sampler '
+            f'coords ({nan_pts} with a NaN) on a {TEX_SIZE}^2 texture: '
+            f'values, dix, diy the plain version\'s bits {same}; NaN '
+            f'texels {int(dm.isnan().sum())}, plain {int(rm.isnan().sum())}'
+            f'; launches {launched}')
+        expect(all(same) and launched == (1, 1),
+               f'[casts] the grid-sample kernels ({mode}) disagree with '
+               'their plain versions on NaN and inf coords')
+        nan_atomic_close(f'[casts] grid_sample_backward, {mode}', dm, big,
+                         ix, iy, c, mode)
+    log(f'[casts] card vs CPU, largest errors: {json.dumps(errs)} '
+        f'({time.perf_counter() - t0:.1f} s)')
+
+
+def coverage_phase():
+    """Every entry of ``chip_coverage``'s table once on CUDA tensors and
+    once on CPU tensors from the same numpy inputs (and one backward pass
+    where the entry has gradients): every output on the card, integer and
+    bool outputs equal, floats within the entry's tolerance. Prints one
+    line a module (entries run, largest error, faults) and fails if any
+    entry faulted; every kernel with a launch counter must have run."""
+    cc = chip_coverage
+    t0 = time.perf_counter()
+    mods, faults = {}, []
+    reset_counters()
+    with cc.one_rank_world():
+        for e in cc.ENTRIES:
+            row = mods.setdefault(e.module, {'entries': 0, 'ran': 0,
+                                             'largest error': 0.,
+                                             'faults': 0})
+            row['entries'] += 1
+            try:
+                card = cc.run(e, 'cuda')
+                torch.cuda.synchronize()
+                cpu = cc.run(e, 'cpu')
+                err, found = (0., []) if e.runs_only else cc.compare(card,
+                                                                     cpu)
+                if err > e.tol:
+                    found.append(f'error {err:.3e} above {e.tol:g}')
+            except Exception as ex:   # a fault of the entry, reported below
+                err, found = 0., [f'{type(ex).__name__}: {ex}'[:500]]
+            row['ran'] += not found
+            row['largest error'] = max(row['largest error'], err)
+            row['faults'] += len(found)
+            faults += [f'{e.id}: {f}' for f in found]
+    launches = read_counters('[coverage] the table')
+    for mod, row in mods.items():
+        log(f'[coverage] {mod}: {row["ran"]} of {row["entries"]} entries '
+            f'ran on the card and agreed, largest error '
+            f'{row["largest error"]:.3e}, faults {row["faults"]}')
+    for f in faults:
+        log(f'[coverage] FAULT {f}')
+    n = sum(len(e.names) for e in cc.ENTRIES)
+    log(f'[coverage] {len(cc.ENTRIES)} entries calling {n} names '
+        f'({len(cc.table_names())} distinct), {len(cc.EXCLUDED)} names '
+        f'excluded; {len(faults)} faults; {time.perf_counter() - t0:.1f} s')
+    expect(not faults, f'[coverage] {len(faults)} faults')
+    expect(all(v > 0 for v in launches.values()),
+           '[coverage] a kernel of the table was launched no time')
+
+
+def _trace_fixed(spc, o, d, cap, fn=None):
+    octree, ph, _, exsum = spc
+    return kt.render.spc.unbatched_raytrace_fixed(
+        octree, ph, exsum, o, d, C5_SPEC_LEVEL, cap, return_level_counts=True,
+        ray_fn=fn)
+
+
+def c5_spec_phase():
+    """Config 5 at its spec size (bench_raytrace.py --level 10 --res 1024):
+    plan_raytrace, then unbatched_raytrace_fixed from the 1,048,576 rays
+    made once (a) and through ``ray_fn`` (b): (a) and (b) bit-equal, the
+    kernel's hits equal to the plain traversal's on the card, a band of
+    rows traced through ``ray_fn`` with those ids equal to the full trace's
+    rows and to the CPU's trace of the same rays; the pack ops on the hits
+    against the CPU. Logs the capacities, the bytes the traversal
+    allocates, the nuggets a level, the hits, whether the exact re-run was
+    forced, and ms and device ms of a trace in each form. Returns the
+    times."""
+    t0 = time.perf_counter()
+    L, R = C5_SPEC_LEVEL, C5_SPEC_RES
+    spc = kt.utils.interop.sphere_shell_spc(level=L, n=C5_N, seed=SEED,
+                                            radius=C5_RADIUS)
+    octree, ph, pyr, exsum = spc
+    fn = kt.render.spc.primary_rays_fn(R, R, *C5_CAM)
+    N = R * R
+    o, d = fn(torch.arange(N, dtype=torch.int32, device='cuda'))
+    caps = kst.capacities(N, L)
+    sched, counts = kt.render.spc.plan_raytrace(octree, ph, exsum, o, d, L,
+                                                return_counts=True)
+    cap = max(max(sched), N)
+    resized = kst.traverse.resized
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    a = _trace_fixed(spc, o, d, cap)
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    b = _trace_fixed(spc, o, d, cap, fn)
+    launches = read_counters('[config5 spec] (a) arrays and (b) ray_fn')
+    expect(launches['traverse'] == 2 and sum(launches.values()) == 2,
+           '[config5 spec] expected two traversals and no other kernel')
+    rerun = kst.traverse.resized - resized
+    same_ab = all(same_bits(x, y) for x, y in zip(a, b))
+    n = int(a[3])
+    ref = kst.traverse_plain(octree, exsum, ph, o, d, L)
+    torch.cuda.synchronize()
+    eq = (n == ref[3] and a[4].tolist() == ref[4]
+          and all(same_bits(x[:n], y) for x, y in zip(a[:3], ref[:3])))
+    log(f'[config5 spec] level {L}, {N} rays, octree {octree.shape[0]} '
+        f'bytes, {ph.shape[0]} points: capacities {caps} (rows a frontier), '
+        f'plan_raytrace schedule {list(sched)}, cap {cap}; {n} hits, per '
+        f'level {a[4].tolist()}; the trace allocated {peak_mb:.1f} MB above '
+        f'its inputs; exact re-run forced {rerun} time(s); (a) and (b) '
+        f'bit-equal {same_ab}; kernel equal to the plain traversal {eq}')
+    expect(same_ab and eq and n <= cap, '[config5 spec] the trace disagrees')
+    del ref
+
+    # the band: rows C5_BAND through ray_fn with their ids
+    lo, hi = C5_BAND[0] * R, C5_BAND[1] * R
+    band = torch.arange(lo, hi, dtype=torch.int32, device='cuda')
+    bo, bd = fn(band)
+    rays_same = same_bits(bo, o[lo:hi]) and same_bits(bd, d[lo:hi])
+    bt = kst.traverse(octree, exsum, ph, bo, bd, L)
+    rows = (a[0][:n] >= lo) & (a[0][:n] < hi)
+    in_full = (same_bits(bt[0] + lo, a[0][:n][rows])
+               and same_bits(bt[1], a[1][:n][rows])
+               and same_bits(bt[2], a[2][:n][rows]))
+    cpu = kst.traverse(octree.cpu(), exsum.cpu(), ph.cpu(), bo.cpu(),
+                       bd.cpu(), L)
+    on_cpu = (cpu[3] == bt[3] and all(same_bits(x.cpu(), y)
+                                      for x, y in zip(bt[:3], cpu[:3])))
+    co, cd = kt.render.spc.primary_rays_fn(R, R, *C5_CAM, device='cpu')(
+        band.cpu())
+    ray_diff = int((cd != bd.cpu()).sum())
+    log(f'[config5 spec] band rows {C5_BAND[0]}-{C5_BAND[1] - 1} '
+        f'({hi - lo} rays) through ray_fn: rays the full set\'s bits '
+        f'{rays_same}, {bt[3]} hits equal to the full trace\'s rows '
+        f'{in_full}, the CPU\'s trace of the same rays equal {on_cpu}; '
+        f'the CPU\'s own rays of the band differ in {ray_diff} of '
+        f'{cd.numel()} direction components (largest '
+        f'{float((cd - bd.cpu()).abs().max()):.3e})')
+    expect(rays_same and in_full and on_cpu, '[config5 spec] the band '
+           'disagrees')
+    check_pack_ops_against_cpu((a[0][:n], a[1][:n], a[2][:n]))
+
+    t = {}
+    for form, f in (('arrays', None), ('ray_fn', fn)):
+        def trace(f=f):
+            _trace_fixed(spc, o, d, cap, f)
+        t[form] = dict(ms=time_ms(trace, C5_SPEC_ITERS),
+                       device_ms=device_ms(f'[config5 spec] {form}', trace,
+                                           C5_SPEC_ITERS))
+    t.update(hits=n, per_level=a[4].tolist(), capacities=caps,
+             schedule=list(sched), alloc_mb=peak_mb, rerun=rerun)
+    log('[config5 spec] times: ' + json.dumps(t))
+    log(card_line())
+    log(f'[config5 spec] {time.perf_counter() - t0:.1f} s')
+    del a, b, o, d
+    torch.cuda.empty_cache()
+    return t
+
+
+def sweep_checks(sc):
+    """Rows 1, 3, 4 and 5 against their plain versions at this size, at
+    forward_checks' and backward_phases' tolerances: rasterize_interp (D =
+    4, normal-z culling), soft_mask_forward (knum KNUM) over its face_idx,
+    rasterize_backward and soft_mask_backward with the train step's
+    cotangents. Above SWEEP_FULL_FACES faces the plain versions of rows 1,
+    3 and 5 run on the rows SWEEP_SLAB alone, held against those rows of
+    the kernels' whole image. Returns {kernel: max abs error}."""
+    r0, r1 = (0, H) if sc.num_faces <= SWEEP_FULL_FACES else SWEEP_SLAB
+    slab = dict(height=r1 - r0, width=W, total_height=H, multiplier=1000.)
+    kw = dict(height=H, width=W, multiplier=1000., eps=1e-8)
+    args = (sc.fz, sc.img, sc.bbox, sc.feat4)
+    feat_k, idx_k, w_k = kr.rasterize_interp(*args, **kw)
+    feat_p, idx_p, w_p = kr.rasterize_interp_plain(*args, r0, eps=1e-8,
+                                                   **slab)
+    torch.cuda.synchronize()
+    mism = int((idx_k[:, r0:r1] != idx_p).sum())
+    ew = max_err(w_k[:, r0:r1], w_p)
+    ef = max_err(feat_k[:, r0:r1], feat_p)
+    expect(mism == 0 and ew <= TOL_WEIGHTS and ef <= TOL_FEATURES,
+           f'[{sc.name}] rasterize_interp disagrees with its plain version')
+    skw = dict(knum=KNUM, sigmainv=7000.)
+    m_k, c_k = ks.soft_mask_forward(sc.sm_img, sc.sm_bbox, idx_k,
+                                    return_cut=True, height=H, width=W,
+                                    multiplier=1000., **skw)
+    m_p, c_p = ks.soft_mask_forward_plain(sc.sm_img, sc.sm_bbox,
+                                          idx_k[:, r0:r1], r0,
+                                          return_cut=True, **slab, **skw)
+    torch.cuda.synchronize()
+    em = max_err(m_k[:, r0:r1], m_p)
+    cut_mism = int((c_k[:, r0:r1] != c_p).sum())
+    expect(em <= TOL_MASK and cut_mism == 0,
+           f'[{sc.name}] soft_mask_forward disagrees with its plain version')
+    log(f'[{sc.name}] rows {r0}..{r1 - 1}: rasterize_interp face_idx '
+        f'mismatches {mism}, max err weights {ew:.3e} features {ef:.3e}; '
+        f'soft_mask_forward max err {em:.3e}, cut mismatches {cut_mism}')
+    g_feat, g_mask, _ = sc.cotangents(4)
+    rb = (g_feat, idx_k, w_k, sc.fvi, sc.feat4)
+    out = krb.rasterize_backward(*rb, eps=1e-8, valid_faces=sc.valid)
+    ref = krb.rasterize_backward_plain(*rb, eps=1e-8)
+    errs = {'rasterize_interp': max(ew, ef), 'soft_mask_forward': em,
+            'rasterize_backward': max(grad_close(
+                f'[{sc.name}] rasterize_backward train cotangent grad '
+                f'{name}', o, r) for name, o, r in zip(
+                    ('image verts', 'features'), out, ref))}
+    sb = (sc.sm_img, sc.sm_bbox, c_k[:, r0:r1], m_k[:, r0:r1],
+          g_mask[:, r0:r1], r0)
+    out = ks.soft_mask_backward(*sb, sigmainv=7000., **slab)
+    ref = ks.soft_mask_backward_plain(*sb, sigmainv=7000., **slab)
+    errs['soft_mask_backward'] = grad_close(
+        f'[{sc.name}] soft_mask_backward train cotangent, rows {r0}..'
+        f'{r1 - 1}, grad image verts', out, ref)
+    return errs
+
+
+def face_sweep_phase():
+    """bench_suite.py:137-180's face sweep at H x W, batch 1, icosphere
+    subdivisions SWEEP_SUBDIVS: the train step's kernels (rows 1, 3, 4
+    and 5) against their plain versions at each size (sweep_checks), the
+    per-tile lists' counts, and the
+    train step (prepare_vertices -> dibr_rasterization -> backward to the
+    vertices) with its launches, ms and device ms a step. Returns the
+    times."""
+    t0 = time.perf_counter()
+    out = {}
+    for s in SWEEP_SUBDIVS:
+        sc = Scene(f'sweep{s}', 1, s, 'cuda')
+        errs = sweep_checks(sc)
+        counts = forward_counts(sc)
+        slots = kr._slots(1, sc.num_faces, H, W)
+        reset_counters()
+        sc.train(1)
+        launches = read_counters(f'[sweep{s}] train step')
+        expect(all(launches[k] > 0 for k in SWEEP_KERNELS),
+               f'[sweep{s}] a kernel of the train step was not launched')
+        ms = time_ms(lambda: sc.train(1), SWEEP_ITERS)
+        dms = device_ms(f'[sweep{s}] train step', lambda: sc.train(1),
+                        SWEEP_ITERS)
+        out[sc.num_faces] = dict(
+            ms=ms, device_ms=dms, pairs=counts['rasterize pairs'],
+            soft_pairs=counts['soft mask pairs'], slots=slots,
+            slots_used=counts['rasterize nonempty 1024-face sublists'],
+            soft_slots_used=counts['soft mask nonempty 1024-face sublists'],
+            errors=errs)
+        log(f'[sweep{s}] {sc.num_faces} faces, batch 1, {H}x{W}: '
+            + json.dumps(out[sc.num_faces]))
+        del sc
+    log('[sweep] times: ' + json.dumps(out))
+    log(card_line())
+    log(f'[sweep] {time.perf_counter() - t0:.1f} s')
+    return out
+
+
+def new_phases_only(which):
+    """``--coverage`` (casts and coverage) or ``--sizes`` (config 5 at its
+    spec size and the face sweep): builds the kernels and runs those
+    phases alone."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(card_line())
+    log(f'torch {torch.__version__}, CUDA {torch.version.cuda}')
+    t0 = time.perf_counter()
+    _build.build_all(_build.HOST_SOURCES)
+    _build.build_all()
+    if which == '--coverage':
+        casts_phase()
+        coverage_phase()
+    else:
+        c5_spec_phase()
+        face_sweep_phase()
+    log(f'{which} total {time.perf_counter() - t0:.1f} s')
+    return 0
+
+
 COMPARE_GROUPS = ('render', 'texture', 'metrics', 'deftet', 'spc')
 
 
@@ -4891,6 +5357,8 @@ def main():
                        tuple(sys.argv[3:]) or COMPARE_GROUPS)
     if sys.argv[1:2] == ['--examples']:
         return examples_only()
+    if sys.argv[1:2] in (['--coverage'], ['--sizes']):
+        return new_phases_only(sys.argv[1])
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4989,6 +5457,10 @@ def main():
     check_deftet_against_cpu()
     check_tets_against_cpu()
     check_pack_ops_against_cpu(hits5)
+    casts_phase()
+    coverage_phase()
+    c5_spec_phase()
+    face_sweep_phase()
     mod_times, _ = module_phases(rays5)
     par1_times = parallel_world1(scenes[0])
     par2_backend, par2_times = parallel_world2(scenes)

@@ -29,6 +29,7 @@ from .. import ops
 from ..render import camera as kcam
 from ..render import mesh as kmesh
 from ..render.mesh.utils import _clip
+from ..casts import to_int
 from . import utils
 from .spline import interp_func_with_tangent
 
@@ -153,22 +154,30 @@ def fish_body_vertices(params, lod_x, lod_y):
     return verts.reshape(1, lod_x * lod_y, 3)
 
 
+def _take(rows, idx):
+    """``rows[idx]`` as JAX indexes: a negative index counts from the end,
+    then every index is clamped to the rows (a uv outside [0, 1] reads
+    the border)."""
+    n = rows.shape[0]
+    return rows[torch.where(idx < 0, idx + n, idx).clamp(0, n - 1).long()]
+
+
 def position_by_uv(vertices, lod_x, lod_y, uvs):
     """Bilinear body-surface positions at uv in [0,1]^2
     (``ian_fish_body_mesh.py:194-213``). ``uvs``: (K, 2) -> (K, 3)."""
     flat = vertices[0]
     lu = uvs[:, 0] * (lod_x - 1)
     lv = uvs[:, 1] * (lod_y - 1)
-    fu = torch.floor(lu).to(torch.int32)
-    cu = torch.ceil(lu).to(torch.int32)
-    fv = torch.floor(lv).to(torch.int32)
-    cv = torch.ceil(lv).to(torch.int32)
+    fu = to_int(torch.floor(lu), torch.int32)
+    cu = to_int(torch.ceil(lu), torch.int32)
+    fv = to_int(torch.floor(lv), torch.int32)
+    cv = to_int(torch.ceil(lv), torch.int32)
     ou = (lu - fu)[:, None]
     ov = (lv - fv)[:, None]
-    bl = flat[(fu * lod_y + fv).long()]
-    tl = flat[(fu * lod_y + cv).long()]
-    br = flat[(cu * lod_y + fv).long()]
-    tr = flat[(cu * lod_y + cv).long()]
+    bl = _take(flat, fu * lod_y + fv)
+    tl = _take(flat, fu * lod_y + cv)
+    br = _take(flat, cu * lod_y + fv)
+    tr = _take(flat, cu * lod_y + cv)
     left = bl + (tl - bl) * ov
     right = br + (tr - br) * ov
     return left + (right - left) * ou

@@ -24,6 +24,7 @@ match the reference.
 import logging
 
 import numpy as np
+import torch
 
 from ...visualize import TimelapseParser
 from ...io import usd
@@ -32,6 +33,13 @@ logger = logging.getLogger(__name__)
 
 TYPE_MESH = 0
 TYPE_POINTCLOUD = 1
+
+
+def _host(a, dtype):
+    """``a`` (a tensor on any device, or an array) as a numpy array."""
+    if torch.is_tensor(a):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a, dtype)
 
 
 def meshes_to_binary(vertices_list, faces_list):
@@ -43,8 +51,8 @@ def meshes_to_binary(vertices_list, faces_list):
             f'{len(vertices_list)}, {len(faces_list)}')
     parts = [np.array([len(vertices_list), 0, 0, 0], np.int32).tobytes()]
     for vertices, faces in zip(vertices_list, faces_list):
-        vertices = np.asarray(vertices, np.float32).reshape(-1, 3)
-        faces = np.asarray(faces, np.int32).reshape(-1, 3)
+        vertices = _host(vertices, np.float32).reshape(-1, 3)
+        faces = _host(faces, np.int32).reshape(-1, 3)
         parts.append(np.array([vertices.shape[0], faces.shape[0]],
                               np.int32).tobytes())
         parts.append(vertices.tobytes())
@@ -57,7 +65,7 @@ def point_clouds_to_binary(positions_list):
     ``dash3d/util.py:64``)."""
     parts = [np.array([len(positions_list), 0, 0, 0], np.int32).tobytes()]
     for positions in positions_list:
-        positions = np.asarray(positions, np.float32).reshape(-1, 3)
+        positions = _host(positions, np.float32).reshape(-1, 3)
         parts.append(np.array([positions.shape[0], 0], np.int32).tobytes())
         if positions.shape[0]:
             lo = positions.min(axis=0)

@@ -37,6 +37,7 @@ from torch.autograd.function import once_differentiable
 
 from . import _build
 from .rasterize import _is_cuda
+from ..casts import to_int
 
 __all__ = ['grid_sample', 'grid_sample_plain', 'grid_sample_backward',
            'grid_sample_backward_plain', 'grid_sample_coords',
@@ -70,13 +71,14 @@ def _bilinear_taps(ix, iy, H, W):
     (wx, wy), as the XLA path forms them."""
     x0f, y0f = torch.floor(ix), torch.floor(iy)
     wx, wy = ix - x0f, iy - y0f
-    x0, y0 = x0f.long(), y0f.long()
+    x0, y0 = to_int(x0f, torch.int64), to_int(y0f, torch.int64)
     x1, y1 = (x0 + 1).clamp(max=W - 1), (y0 + 1).clamp(max=H - 1)
     return (y0 * W + x0, y0 * W + x1, y1 * W + x0, y1 * W + x1), wx, wy
 
 
 def _nearest_tap(ix, iy, W):
-    return torch.round(iy).long() * W + torch.round(ix).long()
+    return (to_int(torch.round(iy), torch.int64) * W
+            + to_int(torch.round(ix), torch.int64))
 
 
 def _gather(maps, idx):
@@ -139,11 +141,13 @@ def _tile_taps(ix, iy, H, W, mode):
     (B, P, k) and, bilinear, the weights' factors (w1, w2) (B, P, 4) of
     each tap's term ``cot * w1 * w2``; k = 4 bilinear, 1 nearest."""
     if mode == 'nearest':
-        return (torch.round(ix).long().clamp(0, W - 1)[..., None],
-                torch.round(iy).long().clamp(0, H - 1)[..., None], None)
+        x = to_int(torch.round(ix), torch.int64).clamp(0, W - 1)
+        y = to_int(torch.round(iy), torch.int64).clamp(0, H - 1)
+        return x[..., None], y[..., None], None
     x0f, y0f = torch.floor(ix), torch.floor(iy)
     wx, wy = ix - x0f, iy - y0f
-    x0, y0 = x0f.long().clamp(0, W - 1), y0f.long().clamp(0, H - 1)
+    x0 = to_int(x0f, torch.int64).clamp(0, W - 1)
+    y0 = to_int(y0f, torch.int64).clamp(0, H - 1)
     x1, y1 = (x0 + 1).clamp(max=W - 1), (y0 + 1).clamp(max=H - 1)
     ax, ay = 1 - wx, 1 - wy
     return (torch.stack([x0, x1, x0, x1], -1),

@@ -8,6 +8,7 @@ import torch
 
 from ..spc.points import _morton_np, quantize_points
 from ..spc.points import unbatched_points_to_octree
+from ...casts import to_int
 
 __all__ = ['pointclouds_to_voxelgrids', 'unbatched_pointcloud_to_spc']
 
@@ -20,7 +21,7 @@ def _base_points_to_voxelgrids(points, resolution):
     dump slot past the grid and are discarded.
     """
     B = points.shape[0]
-    idx = torch.round(points * (resolution - 1)).to(torch.int32)
+    idx = to_int(torch.round(points * (resolution - 1)), torch.int32)
     in_range = torch.all((idx >= 0) & (idx <= resolution - 1), dim=-1)
     flat = (idx[..., 0].long() * resolution + idx[..., 1]) * resolution \
         + idx[..., 2]

@@ -106,10 +106,14 @@ def _face_choices(areas, u):
 def _draws(batch_size, num_samples, dtype, device, generator):
     """The three uniform draws of a sampling call, in the JAX package's
     order: (face (B, S), barycentric u (B, S, 1), barycentric v (B, S,
-    1))."""
+    1)). A generator's draws are made on its device and land on
+    ``device``, as ``ops.random``'s do, so that a seeded CPU generator
+    gives the same samples on every device."""
+    gen_device = device if generator is None else generator.device
+
     def rand(*shape):
         return torch.rand(shape, generator=generator, dtype=dtype,
-                          device=device)
+                          device=gen_device).to(device)
     return (rand(batch_size, num_samples), rand(batch_size, num_samples, 1),
             rand(batch_size, num_samples, 1))
 

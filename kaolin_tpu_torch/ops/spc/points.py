@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ...native import points_to_octree_fast
+from ...casts import to_int
 
 __all__ = [
     'quantize_points',
@@ -33,8 +34,8 @@ def quantize_points(x, level):
     """Quantizes [-1, 1] coords to the integer grid [0, 2^level - 1],
     int16."""
     res = 2 ** level
-    return torch.floor(torch.clamp(res * (x + 1.0) / 2.0, 0, res - 1.)
-                       ).to(torch.int16)
+    return to_int(torch.floor(torch.clamp(res * (x + 1.0) / 2.0, 0,
+                                          res - 1.)), torch.int16)
 
 
 def _spread3(v):

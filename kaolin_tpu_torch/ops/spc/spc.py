@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ...native import points_to_octree_fast
+from ...casts import to_int
 from .points import _compact3_np, _morton_np
 from .uint8 import POPCOUNT8, popcount8
 
@@ -157,8 +158,8 @@ def unbatched_query(octree, exsum, query_coords, level, with_parents=False):
         -1 where empty.
     """
     if query_coords.is_floating_point():
-        coords = torch.floor((query_coords * 0.5 + 0.5) * (2 ** level)
-                             ).to(torch.int32)
+        coords = to_int(torch.floor((query_coords * 0.5 + 0.5)
+                                    * (2 ** level)), torch.int32)
     else:
         coords = query_coords.to(torch.int32)
     maxval = (1 << level) - 1

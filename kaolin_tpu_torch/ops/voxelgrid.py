@@ -14,6 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..casts import to_int
+
 __all__ = ['downsample', 'extract_surface', 'fill', 'extract_odms',
            'project_odms']
 
@@ -141,8 +143,8 @@ def extract_odms(voxelgrids):
     y_vals = torch.amax(y, dim=3)
     x = vg[:, None] * full.reshape(1, 2, -1, 1, 1)
     x_vals = torch.amax(x, dim=2)
-    return (dim - torch.cat([z_vals, y_vals, x_vals], dim=1)
-            ).to(torch.int64)
+    return to_int(dim - torch.cat([z_vals, y_vals, x_vals], dim=1),
+                  torch.int64)
 
 
 def project_odms(odms, voxelgrids=None, votes=1):

@@ -24,12 +24,38 @@ __all__ = ['texture_mapping', 'spherical_harmonic_lighting',
            'prepare_vertices', 'grid_sample_2d']
 
 
+def _balanced(x, ans, other):
+    """``lax.max``'s and ``lax.min``'s derivative factor for ``x``: 1 where
+    ``x`` gave ``ans``, 1/2 where ``other`` equals it too, 0 elsewhere (a
+    NaN ``x`` equals nothing)."""
+    half = torch.where(other == ans, 0.5, 1.).to(ans.dtype)
+    return torch.where(x == ans, half, torch.zeros_like(half))
+
+
+class _Clip(torch.autograd.Function):
+    """``jnp.clip``, ``min(max(x, lo), hi)``: the cotangent times the min's
+    factor, then the max's (:func:`_balanced`), as JAX's VJP multiplies
+    them, so a NaN or infinite cotangent stays NaN where a factor is 0."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        m = torch.maximum(x, lo)
+        y = torch.minimum(m, hi)
+        ctx.save_for_backward(x, lo, hi, m, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lo, hi, m, y = ctx.saved_tensors
+        return (g * _balanced(m, y, hi)) * _balanced(x, m, lo), None, None
+
+
 def _clip(x, lo, hi):
-    """``jnp.clip``'s values and gradients: half the gradient at a tie.
-    The bounds are filled on ``x``'s device (a tensor made from a Python
-    number would be copied from the host, which waits for the card)."""
-    return torch.minimum(torch.maximum(x, x.new_full((), lo)),
-                         x.new_full((), hi))
+    """``jnp.clip``'s values and gradients (half the gradient at a tie,
+    none at a NaN ``x``). The bounds are filled on ``x``'s device (a
+    tensor made from a Python number would be copied from the host, which
+    waits for the card)."""
+    return _Clip.apply(x, x.new_full((), lo), x.new_full((), hi))
 
 
 def _sampler_coords(x, y, h_in, w_in):

@@ -217,7 +217,7 @@ def _imports(path):
 
 def test_port_sources_import_no_jax():
     files = sorted((ROOT / 'kaolin_tpu_torch').rglob('*.py'))
-    files.append(ROOT / 'chip_smoke.py')
+    files += [ROOT / 'chip_smoke.py', ROOT / 'chip_coverage.py']
     assert len(files) > 15
     rel = {str(f.relative_to(ROOT)) for f in files}
     for mod in ('kernels/deftet_topk', 'kernels/spc_traverse',
