@@ -1628,6 +1628,7 @@ EXCLUDED = {
         'parallel.distributed.is_distributed', 'parallel.launch.run_ranks'),
         _PROCESS),
     'render.camera.extrinsics.register_backend': _REGISTRY,
+    'tracing.span': 'a profiler span by name: takes no tensor',
     'io.materials.MaterialManager': ('a registry of USD and OBJ material '
                                      'readers: takes no tensor'),
     **dict.fromkeys((

@@ -1567,7 +1567,8 @@ def level_device_ms(label, fn):
         fn()
         torch.cuda.synchronize()
     evs = sorted((e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.is_user_annotation),
                  key=lambda e: e.time_range.start)
     if not evs:
         log(f'{label}: no device time in the trace; not measured')
@@ -1721,7 +1722,7 @@ def device_ms(label, fn, iters=TIME_ITERS):
     per = {e.key: e.self_device_time_total / 1e3 / iters
            for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.self_device_time_total > 0}
+           and e.self_device_time_total > 0 and not e.is_user_annotation}
     if not per:
         log(f'{label}: no device time in the trace; not measured')
         return None
@@ -1745,11 +1746,12 @@ def profile_calls(label, fn, per_call_ms, iters=10, watch=()):
             fn()
             torch.cuda.synchronize()
             prof.step()
-    # the schedule's step markers are device-side ranges, not kernels
+    # the schedule's step markers and the package's spans have copies on
+    # the device's timeline: ranges, not kernels
     kernels = [e for e in traces[0]
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0
-               and not e.key.startswith('ProfilerStep')]
+               and not e.is_user_annotation]
     if not kernels:
         log(f'{label}: no device time in the trace; busy share not '
             'measured')
@@ -2277,7 +2279,7 @@ def launches_per_call(label, fn, iters=5):
         torch.cuda.synchronize()
     per = {e.key: e.count / iters for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.self_device_time_total > 0}
+           and e.self_device_time_total > 0 and not e.is_user_annotation}
     if not per:
         log(f'{label}: no device activity in the trace; launches not '
             'measured')

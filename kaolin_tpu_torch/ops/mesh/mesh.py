@@ -4,6 +4,8 @@
 import numpy as np
 import torch
 
+from ...tracing import span
+
 __all__ = ['index_vertices_by_faces', 'adjacency_matrix', 'uniform_laplacian']
 
 
@@ -23,7 +25,8 @@ def index_vertices_by_faces(vertices_features, faces):
     if faces.ndim != 2:
         raise ValueError("faces must have 2 dimensions "
                          "(num_faces, num_vertices)")
-    return vertices_features[:, faces.long()]
+    with span('kaolin.index_vertices_by_faces'):
+        return vertices_features[:, faces.long()]
 
 
 def adjacency_matrix(num_vertices, faces, sparse=False, device='cuda'):

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..batch import get_first_idx, segment_ids_from_numel
+from ...tracing import span
 
 __all__ = [
     'face_areas',
@@ -223,13 +224,14 @@ def face_normals(face_vertices, unit=False):
     if face_vertices.shape[-2] != 3:
         raise NotImplementedError(
             "face_normals is only implemented for triangle meshes")
-    edges0 = face_vertices[:, :, 1] - face_vertices[:, :, 0]
-    edges1 = face_vertices[:, :, 2] - face_vertices[:, :, 0]
-    normals = torch.linalg.cross(edges0, edges1, dim=-1)
-    if unit:
-        length = torch.linalg.norm(normals, dim=2, keepdim=True)
-        normals = normals / (length + 1e-10)
-    return normals
+    with span('kaolin.face_normals'):
+        edges0 = face_vertices[:, :, 1] - face_vertices[:, :, 0]
+        edges1 = face_vertices[:, :, 2] - face_vertices[:, :, 0]
+        normals = torch.linalg.cross(edges0, edges1, dim=-1)
+        if unit:
+            length = torch.linalg.norm(normals, dim=2, keepdim=True)
+            normals = normals / (length + 1e-10)
+        return normals
 
 
 def _norm(x):

@@ -25,6 +25,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from ..tracing import span
+
 __all__ = ['make_mesh', 'replicate', 'mesh_sum']
 
 # the mesh class (exported by the package as ``Mesh``, as the JAX package
@@ -163,9 +165,10 @@ def replicate(mesh, *tensors):
     """The identity on tensors that every rank of ``mesh`` holds whole;
     backward, each one's gradient is summed over the mesh, so that every
     rank gets the sum of all ranks' partials. ``None`` passes through."""
-    live = [t for t in tensors if t is not None]
-    out = iter(_Replicate.apply(mesh, *live) if live else ())
-    return tuple(None if t is None else next(out) for t in tensors)
+    with span('kaolin.replicate'):
+        live = [t for t in tensors if t is not None]
+        out = iter(_Replicate.apply(mesh, *live) if live else ())
+        return tuple(None if t is None else next(out) for t in tensors)
 
 
 class _MeshSum(torch.autograd.Function):
@@ -184,4 +187,5 @@ class _MeshSum(torch.autograd.Function):
 def mesh_sum(mesh, tensor):
     """Sum of ``tensor`` over every rank of ``mesh``, on every rank; the
     gradient passes through to this rank's ``tensor`` unchanged."""
-    return _MeshSum.apply(mesh, tensor)
+    with span('kaolin.mesh_sum'):
+        return _MeshSum.apply(mesh, tensor)

@@ -14,6 +14,7 @@ the one-process gradient.
 
 from ..render.mesh.dibr import dibr_rasterization
 from ..render.mesh.rasterization import rasterize
+from ..tracing import span
 from .mesh import axis, replicate
 
 __all__ = ['sharded_rasterize', 'sharded_dibr_rasterization']
@@ -49,14 +50,16 @@ def sharded_rasterize(mesh, height, width, face_vertices_z,
     Returns this rank's block of ``rasterize``'s (features, face_idx):
     (B / data, height / pix, width, ...).
     """
-    multi = isinstance(face_features, (list, tuple))
-    feats = list(face_features) if multi else [face_features]
-    row_start, local_h, (fvz, fvi, valid, *ff) = _block(
-        mesh, height, (face_vertices_z, face_vertices_image, valid_faces,
-                       *feats))
-    ff = type(face_features)(ff) if multi else ff[0]
-    return rasterize(local_h, width, fvz, fvi, ff, valid, multiplier, eps,
-                     backend, row_start=row_start, total_height=height)
+    with span('kaolin.sharded_rasterize'):
+        multi = isinstance(face_features, (list, tuple))
+        feats = list(face_features) if multi else [face_features]
+        row_start, local_h, (fvz, fvi, valid, *ff) = _block(
+            mesh, height, (face_vertices_z, face_vertices_image, valid_faces,
+                           *feats))
+        ff = type(face_features)(ff) if multi else ff[0]
+        return rasterize(local_h, width, fvz, fvi, ff, valid, multiplier,
+                         eps, backend, row_start=row_start,
+                         total_height=height)
 
 
 def sharded_dibr_rasterization(mesh, height, width, face_vertices_z,

@@ -17,6 +17,8 @@ with the camera looking down -z (OpenGL). Constructors take ``device=``,
 import numpy as np
 import torch
 
+from ...tracing import span
+
 __all__ = ['CameraExtrinsics', 'register_backend']
 
 _BACKENDS = ('matrix_se3', 'matrix_6dof_rotation')
@@ -196,13 +198,14 @@ class CameraExtrinsics:
     # --- transforms ------------------------------------------------------
     def transform(self, vectors):
         """World -> camera coordinates; (N, 3) or (C, N, 3) -> (C, N, 3)."""
-        if vectors.ndim == 2:
-            vectors = vectors[None]
-        # products and sums, not a matmul: with an inner size of 3,
-        # PyTorch's gemm on the card keeps few blocks busy
-        mat = self.view_matrix()
-        return (torch.sum(mat[:, None, :3, :3] * vectors[..., None, :], -1)
-                + mat[:, None, :3, 3])
+        with span('kaolin.CameraExtrinsics.transform'):
+            if vectors.ndim == 2:
+                vectors = vectors[None]
+            # products and sums, not a matmul: with an inner size of 3,
+            # PyTorch's gemm on the card keeps few blocks busy
+            mat = self.view_matrix()
+            return (torch.sum(mat[:, None, :3, :3] * vectors[..., None, :],
+                              -1) + mat[:, None, :3, 3])
 
     def inv_transform_rays(self, ray_orig, ray_dir):
         """Camera -> world rays."""

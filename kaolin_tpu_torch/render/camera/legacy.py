@@ -8,6 +8,8 @@ import math
 
 import torch
 
+from ...tracing import span
+
 __all__ = [
     'rotate_translate_points',
     'generate_rotate_translate_matrices',
@@ -76,8 +78,9 @@ def perspective_camera(points, camera_proj):
         points: (batch_size, num_points, 3) in camera coordinates.
         camera_proj: (3, 1) projection vector.
     """
-    projected = points * camera_proj.reshape(-1, 1, 3)
-    return projected[:, :, :2] / projected[:, :, 2:3]
+    with span('kaolin.perspective_camera'):
+        projected = points * camera_proj.reshape(-1, 1, 3)
+        return projected[:, :, :2] / projected[:, :, 2:3]
 
 
 def generate_perspective_projection(fovyangle, ratio=1.0,

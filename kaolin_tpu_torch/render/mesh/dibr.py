@@ -25,6 +25,7 @@ from torch.autograd.function import once_differentiable
 from ...kernels import _build
 from ...kernels.rasterize import tile_bins
 from ...kernels.soft_mask import soft_mask_backward, soft_mask_forward
+from ...tracing import span
 from .rasterization import _rasterize
 
 __all__ = ['dibr_soft_mask', 'dibr_rasterization']
@@ -117,10 +118,11 @@ def _dibr_soft_mask(face_vertices_image, selected_face_idx, sigmainv, boxlen,
     _build.check_backend('dibr_soft_mask', backend)
     if total_height is None:
         total_height = selected_face_idx.shape[1]
-    return _DibrSoftMask.apply(
-        face_vertices_image, selected_face_idx, float(sigmainv),
-        float(boxlen), int(knum), float(multiplier), int(row_start),
-        int(total_height), prepared)
+    with span('kaolin.dibr_soft_mask'):
+        return _DibrSoftMask.apply(
+            face_vertices_image, selected_face_idx, float(sigmainv),
+            float(boxlen), int(knum), float(multiplier), int(row_start),
+            int(total_height), prepared)
 
 
 def dibr_rasterization(height, width, face_vertices_z, face_vertices_image,
@@ -140,23 +142,24 @@ def dibr_rasterization(height, width, face_vertices_z, face_vertices_image,
     """
     del knum_exact
     _multiplier = 1000. if multiplier is None else float(multiplier)
-    prepared = None
-    if (face_vertices_image.is_cuda and face_vertices_image.shape[1] > 0
-            and boxlen * _multiplier >= 0.):
-        # the enlarged bboxes hold the rasterizer's (the same scaled verts,
-        # a margin >= 0): one binning serves both kernels
-        with torch.no_grad():
-            img_scaled, bboxes = _scaled_inputs(face_vertices_image.detach(),
-                                                float(boxlen), _multiplier)
-        prepared = (img_scaled, bboxes, tile_bins(
-            bboxes, row_start, height=height, width=width,
-            total_height=total_height, multiplier=_multiplier))
-    interpolated_features, face_idx = _rasterize(
-        height, width, face_vertices_z, face_vertices_image, face_features,
-        face_normals_z >= 0., multiplier, eps, rast_backend,
-        row_start=row_start, total_height=total_height,
-        bins=prepared and prepared[2])
-    soft_mask = _dibr_soft_mask(face_vertices_image, face_idx, sigmainv,
-                                boxlen, knum, _multiplier, row_start,
-                                total_height, mask_backend, prepared)
-    return interpolated_features, soft_mask, face_idx
+    with span('kaolin.dibr_rasterization'):
+        prepared = None
+        if (face_vertices_image.is_cuda and face_vertices_image.shape[1] > 0
+                and boxlen * _multiplier >= 0.):
+            # the enlarged bboxes hold the rasterizer's (the same scaled
+            # verts, a margin >= 0): one binning serves both kernels
+            with torch.no_grad():
+                img_scaled, bboxes = _scaled_inputs(
+                    face_vertices_image.detach(), float(boxlen), _multiplier)
+            prepared = (img_scaled, bboxes, tile_bins(
+                bboxes, row_start, height=height, width=width,
+                total_height=total_height, multiplier=_multiplier))
+        interpolated_features, face_idx = _rasterize(
+            height, width, face_vertices_z, face_vertices_image,
+            face_features, face_normals_z >= 0., multiplier, eps,
+            rast_backend, row_start=row_start, total_height=total_height,
+            bins=prepared and prepared[2])
+        soft_mask = _dibr_soft_mask(face_vertices_image, face_idx, sigmainv,
+                                    boxlen, knum, _multiplier, row_start,
+                                    total_height, mask_backend, prepared)
+        return interpolated_features, soft_mask, face_idx

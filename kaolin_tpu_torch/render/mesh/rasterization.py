@@ -21,6 +21,7 @@ from torch.autograd.function import once_differentiable
 from ...kernels import _build
 from ...kernels import rasterize as _k
 from ...kernels.rasterize_bwd import rasterize_backward
+from ...tracing import span
 # the pixel-centre and barycentric helpers live beside the plain versions
 # that use them; re-exported here, where the JAX package defines them
 from ...kernels.rasterize import _pixel_coords, _barycentric  # noqa: F401
@@ -169,18 +170,19 @@ def _rasterize(height, width, face_vertices_z, face_vertices_image,
         eps = 1e-8
     if total_height is None:
         total_height = height
-    is_multi = isinstance(face_features, (list, tuple))
-    _face_features = torch.cat(list(face_features), dim=-1) if is_multi \
-        else face_features
-    image_features, face_idx = _Rasterize.apply(
-        face_vertices_z, face_vertices_image, _face_features, valid_faces,
-        int(height), int(width), float(multiplier), float(eps),
-        int(row_start), int(total_height), bins)
-    if is_multi:
-        outs = []
-        cur = 0
-        for f in face_features:
-            outs.append(image_features[..., cur:cur + f.shape[-1]])
-            cur += f.shape[-1]
-        image_features = tuple(outs)
-    return image_features, face_idx
+    with span('kaolin.rasterize'):
+        is_multi = isinstance(face_features, (list, tuple))
+        _face_features = torch.cat(list(face_features), dim=-1) if is_multi \
+            else face_features
+        image_features, face_idx = _Rasterize.apply(
+            face_vertices_z, face_vertices_image, _face_features,
+            valid_faces, int(height), int(width), float(multiplier),
+            float(eps), int(row_start), int(total_height), bins)
+        if is_multi:
+            outs = []
+            cur = 0
+            for f in face_features:
+                outs.append(image_features[..., cur:cur + f.shape[-1]])
+                cur += f.shape[-1]
+            image_features = tuple(outs)
+        return image_features, face_idx

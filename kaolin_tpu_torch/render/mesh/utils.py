@@ -19,6 +19,7 @@ from .. import camera
 from ... import ops
 from ...kernels import _build
 from ...kernels.texture import grid_sample_coords
+from ...tracing import span
 
 __all__ = ['texture_mapping', 'spherical_harmonic_lighting',
            'prepare_vertices', 'grid_sample_2d']
@@ -119,13 +120,14 @@ def texture_mapping(texture_coordinates, texture_maps, mode='nearest'):
     Returns:
         (batch_size, h, w, channels) or (batch_size, num_points, channels).
     """
-    batch_size = texture_coordinates.shape[0]
-    num_channels = texture_maps.shape[1]
-    sampled = grid_sample_coords(
-        texture_maps, *_uv_coords(texture_coordinates,
-                                  *texture_maps.shape[2:]), mode)
-    return sampled.reshape(batch_size, *texture_coordinates.shape[1:-1],
-                           num_channels)
+    with span('kaolin.texture_mapping'):
+        batch_size = texture_coordinates.shape[0]
+        num_channels = texture_maps.shape[1]
+        sampled = grid_sample_coords(
+            texture_maps, *_uv_coords(texture_coordinates,
+                                      *texture_maps.shape[2:]), mode)
+        return sampled.reshape(batch_size, *texture_coordinates.shape[1:-1],
+                               num_channels)
 
 
 def spherical_harmonic_lighting(imnormal, lights):
@@ -165,22 +167,24 @@ def prepare_vertices(vertices, faces, camera_proj, camera_rot=None,
         (face_vertices_camera (B,F,3,3), face_vertices_image (B,F,3,2),
          face_normals (B,F,3) unit).
     """
-    if camera_transform is None:
-        if camera_trans is None or camera_rot is None:
-            raise ValueError("camera_transform or camera_trans and "
-                             "camera_rot must be defined")
-        vertices_camera = camera.rotate_translate_points(
-            vertices, camera_rot, camera_trans)
-    else:
-        if camera_trans is not None or camera_rot is not None:
-            raise ValueError("camera_trans and camera_rot must be None when "
-                             "camera_transform is defined")
-        padded = F.pad(vertices, (0, 1), value=1.)
-        vertices_camera = torch.matmul(padded, camera_transform)
-    vertices_image = camera.perspective_camera(vertices_camera, camera_proj)
-    face_vertices_camera = ops.mesh.index_vertices_by_faces(vertices_camera,
-                                                            faces)
-    face_vertices_image = ops.mesh.index_vertices_by_faces(vertices_image,
-                                                           faces)
-    normals = ops.mesh.face_normals(face_vertices_camera, unit=True)
-    return face_vertices_camera, face_vertices_image, normals
+    with span('kaolin.prepare_vertices'):
+        if camera_transform is None:
+            if camera_trans is None or camera_rot is None:
+                raise ValueError("camera_transform or camera_trans and "
+                                 "camera_rot must be defined")
+            vertices_camera = camera.rotate_translate_points(
+                vertices, camera_rot, camera_trans)
+        else:
+            if camera_trans is not None or camera_rot is not None:
+                raise ValueError("camera_trans and camera_rot must be None "
+                                 "when camera_transform is defined")
+            padded = F.pad(vertices, (0, 1), value=1.)
+            vertices_camera = torch.matmul(padded, camera_transform)
+        vertices_image = camera.perspective_camera(vertices_camera,
+                                                   camera_proj)
+        face_vertices_camera = ops.mesh.index_vertices_by_faces(
+            vertices_camera, faces)
+        face_vertices_image = ops.mesh.index_vertices_by_faces(
+            vertices_image, faces)
+        normals = ops.mesh.face_normals(face_vertices_camera, unit=True)
+        return face_vertices_camera, face_vertices_image, normals
