@@ -1097,6 +1097,43 @@ def _texture_kernels(t):
     return out
 
 
+def _uv_sample_plain(maps, uv, mode):
+    """What ``grid_sample_uv`` reproduces: ``texture_mapping``'s PyTorch
+    composition, (B, P, C)."""
+    from kaolin_tpu_torch.render.mesh.utils import _uv_coords
+    return kt.kernels.texture.grid_sample_coords(
+        maps, *_uv_coords(uv, *maps.shape[2:]), mode)
+
+
+def _uv_backward_plain(maps, uv, cot, mode):
+    """What ``grid_sample_uv_backward`` reproduces: the composition's
+    gradients (dmaps, duv)."""
+    maps, uv = (x.detach().requires_grad_(True) for x in (maps, uv))
+    return torch.autograd.grad(_uv_sample_plain(maps, uv, mode), (maps, uv),
+                               cot)
+
+
+@entry('kernels.texture.grid_sample_uv',
+       'kernels.texture.grid_sample_uv_backward', grad=True)
+def _texture_uv_kernels(t):
+    ktex = kt.kernels.texture
+    maps = t.normal(2, 3, 40, 36, grad=True)
+    # the rasterizer's layout: UVs a stride-3 view of a feature map
+    feat = t.uniform(2, 6, 5, 3, lo=-0.1, hi=1.1, grad=True)
+    uv = feat[..., :2]
+    cot = t.normal(2, 30, 3)
+    # the UV route is the card's; on the CPU the composition it reproduces
+    # stands in for it
+    fwd, bwd = ((ktex.grid_sample_uv, ktex.grid_sample_uv_backward)
+                if t.device != 'cpu' else (_uv_sample_plain,
+                                           _uv_backward_plain))
+    out = []
+    for mode in ('bilinear', 'nearest'):
+        out += [fwd(maps, uv, mode),
+                bwd(maps.detach(), uv.detach(), cot, mode)]
+    return out
+
+
 @entry('kernels.nn_distance.nearest_idx',
        'kernels.nn_distance.nearest_idx_plain',
        'kernels.nn_distance.nearest_idx_pruned', 'kernels.nn_distance.prepass',

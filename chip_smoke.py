@@ -357,6 +357,12 @@ OPS_SOFT_BWD_PAIR = OPS_SOFT_PAIR + 6 + 44
 # sums; backward: the coordinate terms (4 differences, 6 products, 4 sums),
 # the 4 tap weights (8 products) and their 4 adds into the texture
 OPS_GS_POINT, OPS_GS_CHANNEL, OPS_GS_BWD_CHANNEL = 10, 11, 26
+# the UV mode's conversion a point (csrc/grid_sample.cu uv_to_sampler: a
+# clip and 2 operations for u, 3 for v, then 6 an axis), made by each
+# kernel that reads the point; the backward's UV gradient a point (uv_vjp:
+# the grid coordinates again (9), 16 an axis (4 to unnormalise, a clip's
+# derivative of 10, / 2, * n), 10 a UV clip's derivative, 5 more)
+OPS_UV_POINT, OPS_UV_BWD_POINT = 21, 66
 # nearest neighbour, per (query, reference) pair: 3 subtractions, 3
 # products, 2 sums, 1 compare
 OPS_NN_PAIR = 9
@@ -442,8 +448,10 @@ KERNELS = {
 }
 COUNTERS = (kr.rasterize_interp, kr.rasterize_select, ks.soft_mask_forward,
             krb.rasterize_backward, ks.soft_mask_backward, ktex.grid_sample,
-            ktex.grid_sample_backward, kn.nearest_idx, kn.nearest_idx_pruned,
-            kp.p2m_select, kd.deftet_topk, kst.traverse)
+            ktex.grid_sample_backward, ktex.grid_sample_uv,
+            ktex.grid_sample_uv_backward, kn.nearest_idx,
+            kn.nearest_idx_pruned, kp.p2m_select, kd.deftet_topk,
+            kst.traverse)
 # the counter of each KERNELS row whose wrapper has another name: the one
 # CUDA traversal meets both TPU traversals' contract
 COUNTER_OF = {'traverse_banded_cc': 'traverse', 'traverse_banded': 'traverse'}
@@ -617,9 +625,10 @@ class TexturedScene:
         return p, losses, g
 
     def sampler_inputs(self):
-        """The grid sample's inputs in the step: the texture, the sampler
-        coordinates (B, H*W) of the rendered UV map, and the step's
-        cotangent of the samples (B, H*W, 3)."""
+        """The grid sample's inputs in the step: the texture, the rendered
+        UV map (B, H, W, 2; the rasterizer's stride-3 view, as
+        ``texture_mapping`` meets it), its sampler coordinates (B, H*W),
+        and the step's cotangent of the samples (B, H*W, 3)."""
         s, (_, h, w, _) = self.s, self.target.shape
         with torch.no_grad():
             uv_map, nz_map = kt.utils.interop.textured_maps(
@@ -631,7 +640,7 @@ class TexturedScene:
         img = out.reshape(self.target.shape) * _clip(nz_map, 0., 1.)
         cot, = torch.autograd.grad(torch.mean(torch.abs(img - self.target)),
                                    [out])
-        return tex, ix, iy, cot
+        return tex, uv_map, ix, iy, cot
 
 
 def pixel_hits(bbox, height, width):
@@ -703,9 +712,13 @@ def soft_bwd_bound(sm_bbox, cut, grad, knum):
     return bound(nbytes, int(hits[live].sum()) * OPS_SOFT_BWD_PAIR)
 
 
-def grid_sample_bound(maps, points, backward):
+def grid_sample_bound(maps, points, backward, uv=False):
     """(bound ms, 'bytes' or 'operations') of one bilinear grid sample of
-    ``maps`` (B, C, H, W) at ``points`` (B, P) points."""
+    ``maps`` (B, C, H, W) at ``points`` (B, P) points; ``uv``: in the UV
+    mode (the UVs in and, backward, their gradient out: the same bytes as
+    ix, iy and dix, diy; the conversion's operations added, once by the
+    backward's point kernel and once by its sum, at about one list entry
+    a point)."""
     B, C = maps.shape[:2]
     texels, pts = maps.numel(), B * points
     # forward: the texture and ix, iy in, C samples per point out;
@@ -713,10 +726,12 @@ def grid_sample_bound(maps, points, backward):
     # out
     if backward:
         nbytes = 4 * (2 * texels + pts * (4 + C))
-        ops = pts * (OPS_GS_POINT + OPS_GS_BWD_CHANNEL * C)
+        ops = pts * (OPS_GS_POINT + OPS_GS_BWD_CHANNEL * C
+                     + (OPS_UV_BWD_POINT + 2 * OPS_UV_POINT if uv else 0))
     else:
         nbytes = 4 * (texels + pts * (2 + C))
-        ops = pts * (OPS_GS_POINT + OPS_GS_CHANNEL * C)
+        ops = pts * (OPS_GS_POINT + OPS_GS_CHANNEL * C
+                     + (OPS_UV_POINT if uv else 0))
     return bound(nbytes, ops)
 
 
@@ -1352,14 +1367,85 @@ def atomic_close(label, out, plain, maps, ix, iy, cot, mode):
     return float(d.max())
 
 
+def uv_composition(maps, uv, mode):
+    """What ``texture_mapping``'s UV route replaces: ``grid_sample_coords``
+    on ``_uv_coords``, with leaves of the maps and of the UVs (the UVs'
+    strides kept). Returns (samples (B, P, C), maps leaf, UV leaf, ix,
+    iy)."""
+    m = maps.detach().requires_grad_(True)
+    leaf = uv.detach().requires_grad_(True)
+    ix, iy = _uv_coords(leaf, *maps.shape[2:])
+    return ktex.grid_sample_coords(m, ix, iy, mode), m, leaf, ix, iy
+
+
+def nan_equal(a, b):
+    """``torch.equal`` with NaN equal to NaN, of one shape and dtype."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and bool(torch.equal(a.isnan(), b.isnan()))
+            and bool(torch.equal(torch.where(a.isnan(), 0., a),
+                                 torch.where(b.isnan(), 0., b))))
+
+
+def uv_route_checks(label, maps, uv, cots, errs):
+    """``texture_mapping``'s UV route (``grid_sample_uv``,
+    ``grid_sample_uv_backward``) against the PyTorch composition it
+    replaces (:func:`uv_composition`) and its autograd gradients, in both
+    modes, for each (name, cotangent) of ``cots``: the samples, dmaps and
+    duv must be the composition's bits, and two launches (the second with
+    the forward's interleaved copy) the same bits. The samples and the
+    texture gradient are also held against the plain versions as
+    :func:`grid_sample_checks` holds the Sampler mode; the largest errors
+    go into ``errs``."""
+    for mode in ('bilinear', 'nearest'):
+        ref, m, leaf, ix, iy = uv_composition(maps, uv, mode)
+        out, inter = ktex._sample_uv(maps, uv, mode)
+        again = ktex.grid_sample_uv(maps, uv, mode)
+        x, y = ix.detach(), iy.detach()
+        plain = ktex.grid_sample_plain(maps, x, y, mode)
+        torch.cuda.synchronize()
+        same = nan_equal(out, ref.detach()) and nan_equal(out, again)
+        e = max_err(out, plain)
+        log(f'[{label}] grid_sample_uv {mode}: bit-equal to the composition '
+            f'and between two launches {same}, max err {e:.3e} against the '
+            'plain version')
+        expect(same, f'[{label}] grid_sample_uv {mode} is not the '
+               'composition\'s bits')
+        errs['grid_sample'] = max(errs['grid_sample'], e)
+        for cot_name, cot in cots:
+            tag = (f'[{label}] grid_sample_uv_backward {mode} {cot_name} '
+                   'cotangent')
+            want = torch.autograd.grad(ref, (m, leaf), cot,
+                                       retain_graph=True)
+            got = ktex.grid_sample_uv_backward(maps, uv, cot, mode)
+            got2 = ktex.grid_sample_uv_backward(maps, uv, cot, mode, inter)
+            torch.cuda.synchronize()
+            for name, g, g2, w in zip(('dmaps', 'duv'), got, got2, want):
+                ok = nan_equal(g, w) and nan_equal(g, g2)
+                log(f'{tag} {name}: bit-equal to the composition\'s '
+                    f'gradient and between two launches {ok}, nonzero '
+                    f'{int((g != 0).sum())} of {g.numel()}')
+                expect(ok, f'{tag}: {name} is not the composition\'s bits')
+            worst = atomic_close(
+                f'{tag} grad texture', got[0],
+                ktex.grid_sample_backward_plain(maps, x, y, cot, mode)[0],
+                maps, x, y, cot, mode)
+            errs['grid_sample_backward'] = max(errs['grid_sample_backward'],
+                                               worst)
+
+
 def texture_phases(tsc):
-    """Both grid-sample kernels against their plain versions on the card:
-    at config 2's step (its 256x256 texture at the rendered UV map, with
-    the step's cotangent and a random one), and at random coordinates over
-    that texture and over a random 64x64 one (inside the JAX kernel's
-    128x128 domain). Then both timed at the step's inputs, beside
-    ``F.grid_sample``. Returns ({kernel: max abs error}, {kernel: times})."""
-    tex, ix, iy, cot = tsc.sampler_inputs()
+    """The grid-sample kernels on the card, in the UV mode that
+    ``texture_mapping`` runs: at config 2's step (its 256x256 texture at
+    the rendered UV map, the rasterizer's stride-3 view, with the step's
+    cotangent and a random one) and at random UVs over that texture and
+    over a random 64x64 one, against the PyTorch composition
+    (:func:`uv_route_checks`); then in the Sampler mode that
+    ``grid_sample_2d`` runs, against the plain versions, at the step's
+    sampler coordinates and at random ones. Then the UV route timed at the
+    step's inputs, beside the plain composition and ``F.grid_sample`` of
+    the same UVs. Returns ({kernel: max abs error}, {kernel: times}), both
+    of the UV mode: the kernels line's grid-sample rows."""
+    tex, uv, ix, iy, cot = tsc.sampler_inputs()
     B, C, th, tw = tex.shape
     P = ix.shape[1]
     gen = torch.Generator('cuda').manual_seed(SEED)
@@ -1369,53 +1455,118 @@ def texture_phases(tsc):
                 torch.rand(B, P, device='cuda', generator=gen) * (h - 1))
 
     rand_cot = torch.randn(cot.shape, device='cuda', generator=gen)
+    # random UVs a little past [0, 1] on both sides, so the clips bite
+    rand_uv = torch.rand(B, P, 2, device='cuda', generator=gen) * 1.2 - 0.1
     small = torch.rand(B, C, 64, 64, device='cuda', generator=gen)
     uncovered = float((cot == 0).all(-1).float().mean())
     log(f'[textured] {B}x{P} sample points, {uncovered:.4f} of them with a '
-        'zero cotangent in the step')
+        f'zero cotangent in the step; UV map strides {uv.stride()}')
     grid_sample_counts('[textured step cotangent]', tex, ix, iy, cot)
     grid_sample_counts('[textured random cotangent]', tex, ix, iy, rand_cot)
     errs = dict.fromkeys(('grid_sample', 'grid_sample_backward'), 0.)
+    uv_route_checks('config2 UV map', tex, uv,
+                    (('train', cot), ('random', rand_cot)), errs)
+    uv_route_checks(f'{th}x{tw} random UVs', tex, rand_uv,
+                    (('random', rand_cot),), errs)
+    uv_route_checks('64x64 random UVs', small, rand_uv,
+                    (('random', rand_cot),), errs)
+    # grid_sample_2d's Sampler mode, which the textured step does not run
+    sampler_errs = dict.fromkeys(errs, 0.)
     grid_sample_checks('config2 UV map', tex, ix, iy,
-                       (('train', cot), ('random', rand_cot)), errs)
+                       (('train', cot), ('random', rand_cot)), sampler_errs)
     grid_sample_checks(f'{th}x{tw} random coords', tex,
-                       *rand_coords(th, tw), (('random', rand_cot),), errs)
+                       *rand_coords(th, tw), (('random', rand_cot),),
+                       sampler_errs)
     grid_sample_checks('64x64 random coords', small, *rand_coords(64, 64),
-                       (('random', rand_cot),), errs)
+                       (('random', rand_cot),), sampler_errs)
     zero_cotangent_checks(tex, ix, iy)
+    log('[textured] the Sampler mode (grid_sample_2d): largest errors '
+        + json.dumps(sampler_errs))
 
-    lib_fwd, grid = library_grid_sample(tex, ix, iy)
-    cot_lib = cot.transpose(1, 2).reshape(B, C, 1, P).contiguous()
-
-    def lib_bwd():
-        return torch.ops.aten.grid_sampler_2d_backward(
-            cot_lib, tex, grid, 0, 1, False, [True, True])
-
+    lib_fwd, lib_bwd = library_texture_mapping(tex, uv, cot)
     e_lib = max_err(lib_fwd()[:, :, 0].transpose(1, 2),
-                    ktex.grid_sample(tex, ix, iy))
-    log(f'[textured] F.grid_sample vs the kernel at the step: max diff '
-        f'{e_lib:.3e}')
-    shape = (f'texture {B}x{C}x{th}x{tw} at {B}x{P} points (config 2 '
-             f'step, {tsc.num_faces} faces, {H}x{W})')
-    times = {'grid_sample': dict(
-        sampler_times('[textured]', tex, ix, iy),
-        plain_ms=time_ms(lambda: ktex.grid_sample_plain(tex, ix, iy), 3))}
-    times['grid_sample_backward'] = dict(
-        ms=time_ms(lambda: ktex.grid_sample_backward(tex, ix, iy, cot),
-                   TIME_ITERS),
-        plain_ms=time_ms(lambda: ktex.grid_sample_backward_plain(
-            tex, ix, iy, cot), 3),
+                    ktex.grid_sample_uv(tex, uv))
+    log(f'[textured] F.grid_sample of the UVs vs the UV route at the step: '
+        f'max diff {e_lib:.3e}')
+    shape = (f'texture {B}x{C}x{th}x{tw} at {B}x{P} UVs, stride '
+             f'{uv.stride(-2)} floats (UV mode; config 2 step, '
+             f'{tsc.num_faces} faces, {H}x{W})')
+    times = uv_route_times('[textured]', tex, uv, cot)
+    times['grid_sample'].update(
+        plain_ms=time_ms(lambda: ktex.grid_sample_plain(
+            tex, *_uv_coords(uv, th, tw)), 3),
+        library_ms=time_ms(lib_fwd, TIME_ITERS),
+        library_device_ms=device_ms('[textured] F.grid_sample of the UVs',
+                                    lib_fwd))
+    times['grid_sample_backward'].update(
+        plain_ms=time_ms(lambda: uv_plain_backward(tex, uv, cot), 3),
         library_ms=time_ms(lib_bwd, TIME_ITERS))
     for name in times:
-        bnd = grid_sample_bound(tex, P, name == 'grid_sample_backward')
+        bnd = grid_sample_bound(tex, P, name == 'grid_sample_backward',
+                                uv=True)
         times[name].update(bound_ms=bnd[0], bound_by=bnd[1], shape=shape)
-        log(f'[textured] time {name} (the step\'s cotangent): '
+        log(f'[textured] time {name}, UV mode (the step\'s cotangent): '
             + json.dumps(times[name]))
-    rand_ms = time_ms(lambda: ktex.grid_sample_backward(tex, ix, iy,
-                                                        rand_cot), TIME_ITERS)
-    log(f'[textured] time grid_sample_backward with a random cotangent, '
+    rand_ms = time_ms(lambda: ktex.grid_sample_uv_backward(tex, uv,
+                                                           rand_cot),
+                      TIME_ITERS)
+    log(f'[textured] time grid_sample_uv_backward with a random cotangent, '
         f'nonzero on the background too: {rand_ms:.4f} ms')
     return errs, times
+
+
+def uv_route_times(label, tex, uv, cot):
+    """The UV route at one input: ``grid_sample_uv`` and
+    ``grid_sample_uv_backward`` (with the forward's interleaved copy, as
+    the step runs it), each with CUDA events and by the card alone, and
+    the backward's CUDA activities a call. {'grid_sample': times,
+    'grid_sample_backward': times}."""
+    inter = ktex._sample_uv(tex, uv, 'bilinear')[1]
+
+    def fwd():
+        return ktex.grid_sample_uv(tex, uv)
+
+    def bwd():
+        return ktex.grid_sample_uv_backward(tex, uv, cot, 'bilinear', inter)
+    return {'grid_sample': dict(
+        ms=time_ms(fwd, TIME_ITERS),
+        device_ms=device_ms(f'{label} grid_sample_uv', fwd)),
+        'grid_sample_backward': dict(
+            ms=time_ms(bwd, TIME_ITERS),
+            device_ms=device_ms(f'{label} grid_sample_uv_backward', bwd),
+            launches_per_call=launches_per_call(
+                f'{label} grid_sample_uv_backward', bwd))}
+
+
+def uv_plain_backward(tex, uv, cot):
+    """The UV route's gradients by the plain versions: the plain sampler's
+    backward at ``_uv_coords``, then autograd through the conversion.
+    Returns (dmaps, duv)."""
+    leaf = uv.detach().requires_grad_(True)
+    ix, iy = _uv_coords(leaf, *tex.shape[2:])
+    dmaps, dix, diy = ktex.grid_sample_backward_plain(tex, ix.detach(),
+                                                      iy.detach(), cot)
+    return dmaps, torch.autograd.grad((ix, iy), leaf, (dix, diy))[0]
+
+
+def library_texture_mapping(tex, uv, cot):
+    """The library's yardstick for the UV route: ``F.grid_sample`` at the
+    UVs as a normalised grid (the same clip, v flipped), forward and
+    backward to the texture and the UVs. Returns (forward, backward)."""
+    B, C = tex.shape[:2]
+    flip = torch.tensor([1., -1.], device=tex.device)
+
+    def call(t, u):
+        grid = (u.clamp(0., 1.) * 2. - 1.) * flip
+        return F.grid_sample(t, grid.reshape(B, 1, -1, 2), 'bilinear',
+                             'border', align_corners=False)
+    t = tex.detach().requires_grad_(True)
+    leaf = uv.detach().requires_grad_(True)
+    out = call(t, leaf)
+    cot_lib = cot.transpose(1, 2).reshape(out.shape).contiguous()
+    return (lambda: call(tex, uv),
+            lambda: torch.autograd.grad(out, (t, leaf), cot_lib,
+                                        retain_graph=True))
 
 
 def library_grid_sample(tex, ix, iy):
@@ -1674,8 +1825,8 @@ def textured_path(tsc):
     reset_counters()
     p, losses, g = tsc.train(TRAIN_STEPS)
     launches = read_counters('textured path')
-    for name in ('rasterize_interp', 'rasterize_backward', 'grid_sample',
-                 'grid_sample_backward'):
+    for name in ('rasterize_interp', 'rasterize_backward', 'grid_sample_uv',
+                 'grid_sample_uv_backward'):
         expect(launches[name] > 0,
                f'{name} was not launched on the textured path')
     for name in ('soft_mask_forward', 'soft_mask_backward'):
@@ -4248,7 +4399,7 @@ def compare(label, groups=COMPARE_GROUPS):
     if 'texture' in groups:
         resource_usage(('grid_sample',))
         tsc = TexturedScene(TEX_BATCH, TEX_SUBDIV, TEX_SIZE, H, W, 'cuda')
-        tex, ix, iy, cot = tsc.sampler_inputs()
+        tex, uv, ix, iy, cot = tsc.sampler_inputs()
         gen = torch.Generator('cuda').manual_seed(SEED)
         rand_cot = torch.randn(cot.shape, device='cuda', generator=gen)
         grid_sample_counts('[step cotangent]', tex, ix, iy, cot)
@@ -4267,6 +4418,8 @@ def compare(label, groups=COMPARE_GROUPS):
         report('grid_sample_backward, random cotangent',
                sampler_backward_times(label, tex, ix, iy, rand_cot,
                                       'random cotangent'))
+        for key, t in uv_route_times(f'[{label}]', tex, uv, cot).items():
+            report(f'{key}, UV mode, step cotangent', t)
         ms = textured_step_ms(tsc)
         prof = profile_calls(f'[{label}] profile textured step',
                              lambda: tsc.train(1), ms, watch=GS_BWD_KERNELS)
@@ -5019,10 +5172,10 @@ EX_DMTET_FALL, EX_DMTET_FACES = 0.01, 100
 # the kernels (launch counters) each application's run must launch
 EX_KERNELS = {
     'fish': ('rasterize_interp', 'soft_mask_forward', 'soft_mask_backward',
-             'grid_sample', 'grid_sample_backward'),
+             'grid_sample_uv', 'grid_sample_uv_backward'),
     'dibr': ('rasterize_interp', 'rasterize_backward', 'soft_mask_forward',
-             'soft_mask_backward', 'grid_sample', 'grid_sample_backward',
-             'nearest_idx'),
+             'soft_mask_backward', 'grid_sample_uv',
+             'grid_sample_uv_backward', 'nearest_idx'),
     'nglod': ('traverse',),
     'dmtet': ('nearest_idx_pruned',),
 }
@@ -5431,8 +5584,10 @@ def main():
                       lambda: sc.train(1), ms)
 
     tex_launches = textured_path(tsc)
+    # texture_mapping runs the sampler's kernels in their UV mode, which
+    # the grid-sample rows time
     for name in ('grid_sample', 'grid_sample_backward'):
-        launches[name] = tex_launches[name]
+        launches[name] = tex_launches[name.replace('sample', 'sample_uv')]
     ms = textured_step_ms(tsc)
     tex_per_frame = ms / tsc.batch
     profile_calls('[textured] profile train step', lambda: tsc.train(1), ms,

@@ -15,10 +15,34 @@
 // as jnp.round and torch.round). Any texture size is taken; the Pallas
 // kernel takes at most 128 x 128.
 //
-// The coordinates are the sampler's: unnormalised and already clipped to
-// [0, size - 1] by the caller. The tap indices are clamped to the texture
-// as well, which changes nothing on such inputs and keeps every read and
-// write inside the buffers whatever the caller passes.
+// The coordinates come in one of two modes, fixed at compile time by the
+// entry point (Coords):
+//   Sampler (grid_sample_forward, grid_sample_backward): arrays ix, iy
+//     (B, P), the sampler's coordinates, unnormalised and already clipped
+//     to [0, size - 1] by the caller;
+//   Uv (grid_sample_uv_forward, grid_sample_uv_backward): OpenGL UVs, u at
+//     uv[b * sb + p * sp] and v beside it, which every kernel that reads a
+//     point converts in its own thread (uv_to_sampler) with the operations
+//     of texture_mapping's PyTorch composition (render/mesh/utils.py
+//     _uv_coords and _sampler_coords), in their order:
+//       u' = clip(u, 0, 1) * 2 - 1,     v' = (clip(v, 0, 1) * 2 - 1) * -1,
+//       ix = clip(((u' + 1) * W - 1) / 2, 0, W - 1), iy the same of v' and H,
+//     clip(x, lo, hi) = min(max(x, lo), hi) as torch.maximum and
+//     torch.minimum take it on the card (a NaN x stays NaN). No coordinate
+//     array is stored. The backward writes the UVs' gradient duv (B, P, 2)
+//     in place of dix and diy: each point's thread takes dix, diy through
+//     the composition's backward in autograd's order (uv_vjp): the axis
+//     clip (the min's factor, then the max's), / 2, * W (or * H), for v
+//     * -1, the sum of the two selects' gradients (+ 0), * 2, then the UV
+//     clip (the min's factor, then the max's), where a factor is 1, 1/2 at
+//     a tie with the other bound and 0 elsewhere (a NaN x equals nothing),
+//     as _balanced gives it, so a NaN or infinite cotangent stays NaN where
+//     a factor is 0. The samples, dmaps and duv are therefore the
+//     composition's bits (grid_sample_coords on _uv_coords): same
+//     operations, same order, no contraction.
+// The tap indices are clamped to the texture as well, which changes
+// nothing on the sampler's coordinates and keeps every read and write
+// inside the buffers whatever the caller passes.
 //
 // Forward: the texture arrives planar, (B, C, H, W), so a tap's C channels
 // lie a plane apart and a bilinear point would make 4 x C scattered
@@ -77,11 +101,12 @@
 // at most 4 lists), so no count is read back to the host.
 //
 // What bounds it on an H100: bytes and latency. The forward reads ix, iy
-// (8 bytes per point), writes C floats per point and reads the texture
-// once (it fits in the 50 MB L2), plus the copy's write and read. The
-// backward reads the coordinates and the cotangent twice (steps 1 and 4,
-// L2-resident at config 2) and the copy's taps once, writes dix, diy and
-// dtex once, and 4 bytes a point (its record) and a (tile, point) entry;
+// (8 bytes per point; in Uv mode the UVs, 8 bytes at a stride of sp
+// floats), writes C floats per point and reads the texture once (it fits
+// in the 50 MB L2), plus the copy's write and read. The backward reads the
+// coordinates and the cotangent twice (steps 1 and 4, L2-resident at
+// config 2) and the copy's taps once, writes dix, diy (duv) and dtex once,
+// and 4 bytes a point (its record) and a (tile, point) entry;
 // the sum's steps are chains of dependent loads (the list, then the
 // point), so each warp loads the list two steps ahead. The arithmetic is
 // under 30 operations per point and channel.
@@ -122,6 +147,110 @@ constexpr int SLOTS_PER_TILE = 2;
 constexpr int SLOTS_EXTRA = 512;
 constexpr int SLOTS_MAX = 4096;
 constexpr unsigned FULL = 0xffffffffu;
+
+// Where a kernel's points come from (the header's two modes).
+enum class Coords { Sampler, Uv };
+
+struct Src {
+  const float* ix;  // Sampler: (B, P) each
+  const float* iy;
+  const float* uv;  // Uv: u of point (b, p) at uv[b * sb + p * sp], v after
+  long long sb, sp;
+};
+
+// torch.maximum / torch.minimum on the card with a bound that is no NaN:
+// a NaN x is returned as it is, else fmaxf / fminf
+__device__ __forceinline__ float t_max(float x, float lo) {
+  return x != x ? x : fmaxf(x, lo);
+}
+
+__device__ __forceinline__ float t_min(float x, float hi) {
+  return x != x ? x : fminf(x, hi);
+}
+
+// A grid coordinate a in [-1, 1] to the sampler's along an axis of n
+// texels, unclipped: ((a + 1) * n - 1) / 2
+__device__ __forceinline__ float unnormalise(float a, int n) {
+  return ((a + 1.f) * (float)n - 1.f) / 2.f;
+}
+
+// OpenGL UVs to the sampler's clipped coordinates (the header's sequence)
+__device__ __forceinline__ void uv_to_sampler(float u, float v, int H, int W,
+                                              float& x, float& y) {
+  const float gu = t_min(t_max(u, 0.f), 1.f) * 2.f - 1.f;
+  const float gv = (t_min(t_max(v, 0.f), 1.f) * 2.f - 1.f) * -1.f;
+  x = t_min(t_max(unnormalise(gu, W), 0.f), (float)(W - 1));
+  y = t_min(t_max(unnormalise(gv, H), 0.f), (float)(H - 1));
+}
+
+// The derivative factor of a max or min for its input x (_balanced): 1
+// where x gave ans, 1/2 where the other operand equals ans too, else 0
+__device__ __forceinline__ float balanced(float x, float ans, float other) {
+  return x == ans ? (other == ans ? 0.5f : 1.f) : 0.f;
+}
+
+// g through clip(x, lo, hi) = min(max(x, lo), hi): the min's factor, then
+// the max's
+__device__ __forceinline__ float clip_vjp(float x, float lo, float hi,
+                                          float g) {
+  const float m = t_max(x, lo), y = t_min(m, hi);
+  return (g * balanced(m, y, hi)) * balanced(x, m, lo);
+}
+
+// The sampler coordinate's cotangent g along an axis of n texels back to
+// the grid coordinate a: the clip, / 2, * n
+__device__ __forceinline__ float axis_vjp(float a, int n, float g) {
+  return (clip_vjp(unnormalise(a, n), 0.f, (float)(n - 1), g) / 2.f)
+         * (float)n;
+}
+
+// dix, diy of a point at UVs (u, v) to the UVs' gradient (the header's
+// order)
+__device__ __forceinline__ void uv_vjp(float u, float v, int H, int W,
+                                       float gx, float gy, float& du,
+                                       float& dv) {
+  const float gu = t_min(t_max(u, 0.f), 1.f) * 2.f - 1.f;
+  const float gv = (t_min(t_max(v, 0.f), 1.f) * 2.f - 1.f) * -1.f;
+  const float eu = axis_vjp(gu, W, gx) + 0.f;
+  const float ev = axis_vjp(gv, H, gy) * -1.f + 0.f;
+  du = clip_vjp(u, 0.f, 1.f, eu * 2.f);
+  dv = clip_vjp(v, 0.f, 1.f, ev * 2.f);
+}
+
+// Point i = b * P + p's UVs; i < B * P < 2^29 (the UV route's entry
+// points take no more), so b is a 32-bit division
+__device__ __forceinline__ const float* uv_at(const Src& s, size_t i,
+                                              int P) {
+  const unsigned k = (unsigned)i, b = k / (unsigned)P;
+  return s.uv + b * s.sb + (k - b * (unsigned)P) * s.sp;
+}
+
+// Point i's sampler coordinates, from the arrays or from its UVs (u, v
+// too, 0 in Sampler mode); no kernel writes them, so through the read-only
+// cache
+template <Coords M>
+__device__ __forceinline__ void point_coords(const Src& s, size_t i, int P,
+                                             int H, int W, float& x,
+                                             float& y, float& u, float& v) {
+  if constexpr (M == Coords::Sampler) {
+    x = __ldg(s.ix + i);
+    y = __ldg(s.iy + i);
+    u = v = 0.f;
+  } else {
+    const float* q = uv_at(s, i, P);
+    u = __ldg(q);
+    v = __ldg(q + 1);
+    uv_to_sampler(u, v, H, W, x, y);
+  }
+}
+
+template <Coords M>
+__device__ __forceinline__ void point_coords(const Src& s, size_t i, int P,
+                                             int H, int W, float& x,
+                                             float& y) {
+  float u, v;
+  point_coords<M>(s, i, P, H, W, x, y, u, v);
+}
 
 struct Taps {
   size_t i00, i01, i10, i11;  // texel offsets y * W + x
@@ -195,13 +324,12 @@ __device__ __forceinline__ void store_group(float* o, int g, int C,
   for (int k = 0; k < 4 && 4 * g + k < C; ++k) o[4 * g + k] = v[k];
 }
 
-// tex (B, H, W, C4) interleaved; ix, iy (B, P); out (B, P, C). A thread
-// samples PTS points THREADS apart, their coordinates loaded first, so
-// that more loads are in flight per thread.
+// tex (B, H, W, C4) interleaved; the points of src (B, P); out (B, P, C).
+// A thread samples PTS points THREADS apart, their coordinates loaded
+// first, so that more loads are in flight per thread.
+template <Coords M>
 __global__ void __launch_bounds__(THREADS)
-grid_sample_fwd_kernel(const float4* __restrict__ tex,
-                       const float* __restrict__ ix,
-                       const float* __restrict__ iy,
+grid_sample_fwd_kernel(const float4* __restrict__ tex, Src src,
                        float* __restrict__ out, int B, int C, int H, int W,
                        int P, int G, int nearest) {
   const size_t first = (size_t)blockIdx.x * THREADS * PTS + threadIdx.x;
@@ -210,8 +338,8 @@ grid_sample_fwd_kernel(const float4* __restrict__ tex,
 #pragma unroll
   for (int j = 0; j < PTS; ++j) {
     const size_t i = first + (size_t)j * THREADS;
-    x[j] = i < total ? ix[i] : 0.f;
-    y[j] = i < total ? iy[i] : 0.f;
+    x[j] = y[j] = 0.f;
+    if (i < total) point_coords<M>(src, i, P, H, W, x[j], y[j]);
   }
 #pragma unroll
   for (int j = 0; j < PTS; ++j) {
@@ -286,16 +414,17 @@ __device__ __forceinline__ int key_at(const Keys& k, int j) {
 constexpr int POINT_THREADS = 256;
 
 // Step 1, a thread a point: dix and diy (from the interleaved copy; 0 in
-// nearest mode), the point's record, and its tiles counted into the
-// (tile, chunk) table cnt (B, T, NCH), zeroed: the lanes that add to one
-// entry are found with __match_any_sync and their number added by the
-// lowest of them (integer atomics: the counts are exact in any order).
+// nearest mode), written to d0 and d1 (Sampler) or taken through uv_vjp to
+// the UVs' gradient, written to d0 (B, P, 2) (Uv), the point's record, and
+// its tiles counted into the (tile, chunk) table cnt (B, T, NCH), zeroed:
+// the lanes that add to one entry are found with __match_any_sync and
+// their number added by the lowest of them (integer atomics: the counts
+// are exact in any order).
+template <Coords M>
 __global__ void __launch_bounds__(POINT_THREADS)
-gs_bwd_point_kernel(const float4* __restrict__ tex,
-                    const float* __restrict__ ix,
-                    const float* __restrict__ iy,
-                    const float* __restrict__ cot, float* __restrict__ dix,
-                    float* __restrict__ diy, int* __restrict__ rec,
+gs_bwd_point_kernel(const float4* __restrict__ tex, Src src,
+                    const float* __restrict__ cot, float* __restrict__ d0,
+                    float* __restrict__ d1, int* __restrict__ rec,
                     int* __restrict__ cnt, Geo g) {
   const size_t i = (size_t)blockIdx.x * POINT_THREADS + threadIdx.x;
   const bool valid = i < (size_t)g.B * g.P;
@@ -304,7 +433,8 @@ gs_bwd_point_kernel(const float4* __restrict__ tex,
   if (valid) {
     const int b = (int)(i / g.P), p = (int)(i - (size_t)b * g.P);
     entry = b * g.T * g.NCH + p / g.PW;
-    const float x = ix[i], y = iy[i];
+    float x, y, u, v;
+    point_coords<M>(src, i, g.P, g.H, g.W, x, y, u, v);
     const float* gp = cot + i * g.C;
     float gx = 0.f, gy = 0.f;
     bool live = false;
@@ -342,8 +472,12 @@ gs_bwd_point_kernel(const float4* __restrict__ tex,
       sx = t.x1 / TILE != t.x0 / TILE;
       sy = t.y1 / TILE != t.y0 / TILE;
     }
-    dix[i] = gx;
-    diy[i] = gy;
+    if constexpr (M == Coords::Sampler) {
+      d0[i] = gx;
+      d1[i] = gy;
+    } else {
+      uv_vjp(u, v, g.H, g.W, gx, gy, d0[2 * i], d0[2 * i + 1]);
+    }
     r = live ? k0 | ((int)sx << 30) | ((int)sy << 29) : -1;
     rec[i] = r;
   }
@@ -552,14 +686,15 @@ __device__ __forceinline__ int list_point(const int* __restrict__ list,
 }
 
 // A point's coordinates and channels c0 .. c0 + cg of its cotangent.
+template <Coords M>
 __device__ __forceinline__ void load_point(int p, int c0, int cg,
-                                           const float* __restrict__ ix,
-                                           const float* __restrict__ iy,
+                                           const Src& src,
                                            const float* __restrict__ cot,
-                                           int C, float& x, float& y,
+                                           const Geo& g, float& x, float& y,
                                            float (&v)[SUM_CG]) {
-  x = p >= 0 ? ix[p] : 0.f;
-  y = p >= 0 ? iy[p] : 0.f;
+  const int C = g.C;
+  x = y = 0.f;
+  if (p >= 0) point_coords<M>(src, (size_t)p, g.P, g.H, g.W, x, y);
 #pragma unroll
   for (int k = 0; k < SUM_CG; ++k)
     v[k] = p >= 0 && k < cg ? cot[(size_t)p * C + c0 + k] : 0.f;
@@ -567,11 +702,10 @@ __device__ __forceinline__ void load_point(int p, int c0, int cg,
 
 // Step 4 for the m list entries from e0 of tile tt, chunk `slot - first`
 // of `items` (its partial tile in `slot` when items > 1).
+template <Coords M>
 __device__ void sum_chunk(const int* __restrict__ list, int e0, int m,
                           int tt, int items, int first, int slot,
-                          int* __restrict__ done,
-                          const float* __restrict__ ix,
-                          const float* __restrict__ iy,
+                          int* __restrict__ done, const Src& src,
                           const float* __restrict__ cot,
                           float* __restrict__ partials,
                           float* __restrict__ dmaps, const Geo& g,
@@ -595,8 +729,8 @@ __device__ void sum_chunk(const int* __restrict__ list, int e0, int m,
       na = list_point(list, e0, (q + 2 * SUM_WARPS) * 32 + lane, m);
       nb = list_point(list, e0, (q + 3 * SUM_WARPS) * 32 + lane, m);
       float xa, ya, xb, yb, va[SUM_CG], vb[SUM_CG];
-      load_point(pa, c0, cg, ix, iy, cot, g.C, xa, ya, va);
-      load_point(pb, c0, cg, ix, iy, cot, g.C, xb, yb, vb);
+      load_point<M>(pa, c0, cg, src, cot, g, xa, ya, va);
+      load_point<M>(pb, c0, cg, src, cot, g, xb, yb, vb);
       sum_step(mine, pa, xa, ya, va, cg, tx0, ty0, g);
       if (q + SUM_WARPS < nsteps)
         sum_step(mine, pb, xb, yb, vb, cg, tx0, ty0, g);
@@ -660,6 +794,7 @@ gs_bwd_plan_kernel(const int* __restrict__ tile_start,
 
 // Step 4: blocks 0 .. ntiles - 1 sum the tiles of one chunk; block
 // ntiles + s takes slot s, a chunk of a longer list, if it has an owner.
+template <Coords M>
 __global__ void __launch_bounds__(SUM_WARPS * 32)
 gs_bwd_sum_kernel(const int* __restrict__ list,
                   const int* __restrict__ tile_start,
@@ -667,8 +802,7 @@ gs_bwd_sum_kernel(const int* __restrict__ list,
                   const int* __restrict__ tile_items,
                   const int* __restrict__ owner,
                   const int* __restrict__ entries, int slots,
-                  int* __restrict__ done, const float* __restrict__ ix,
-                  const float* __restrict__ iy,
+                  int* __restrict__ done, Src src,
                   const float* __restrict__ cot,
                   float* __restrict__ partials, float* __restrict__ dmaps,
                   Geo g, int ntiles) {
@@ -677,8 +811,8 @@ gs_bwd_sum_kernel(const int* __restrict__ list,
   if ((int)blockIdx.x < ntiles) {
     const int tt = blockIdx.x;
     if (tile_items[tt] == 1)
-      sum_chunk(list, tile_start[tt], tile_n[tt], tt, 1, 0, 0, done, ix,
-                iy, cot, partials, dmaps, g, s_copy, &s_last);
+      sum_chunk<M>(list, tile_start[tt], tile_n[tt], tt, 1, 0, 0, done,
+                   src, cot, partials, dmaps, g, s_copy, &s_last);
     return;
   }
   // With no entries no tile has a region, so gs_bwd_plan_kernel wrote no
@@ -693,9 +827,9 @@ gs_bwd_sum_kernel(const int* __restrict__ list,
   const int first = slot_of(start, total, slots);
   const int j = s - first;
   const int len = (n + items - 1) / items;
-  sum_chunk(list, start + j * len, max(0, min(len, n - j * len)), tt, items,
-            first, s, done, ix, iy, cot, partials, dmaps, g, s_copy,
-            &s_last);
+  sum_chunk<M>(list, start + j * len, max(0, min(len, n - j * len)), tt,
+               items, first, s, done, src, cot, partials, dmaps, g, s_copy,
+               &s_last);
 }
 
 // The backward's scratch, by byte offsets, from the shapes alone.
@@ -750,16 +884,10 @@ Layout make_layout(int B, int C, int H, int W, int P, int nearest,
   return L;
 }
 
-}  // namespace
-
-extern "C" {
-
-// tex (B, H, W, C4) float scratch, C4 = C rounded up to a multiple of 4;
-// out (B, P, C), every entry written. Two launches on the stream: the
-// interleaved copy, then the sampler.
-int grid_sample_forward(const float* maps, const float* ix, const float* iy,
-                        float* tex, float* out, int B, int C, int H, int W,
-                        int P, int nearest, int device, void* stream) {
+// The forward: the interleaved copy, then the sampler.
+template <Coords M>
+int forward(const float* maps, Src src, float* tex, float* out, int B, int C,
+            int H, int W, int P, int nearest, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || P == 0 || C == 0) return (int)cudaGetLastError();
@@ -769,40 +897,18 @@ int grid_sample_forward(const float* maps, const float* ix, const float* iy,
                                  / THREADS), THREADS, 0, s>>>(
       maps, (float4*)tex, B, C, H * W, G);
   const size_t per_block = (size_t)THREADS * PTS;
-  grid_sample_fwd_kernel<<<(unsigned)(((size_t)B * P + per_block - 1)
-                                      / per_block), THREADS, 0, s>>>(
-      (const float4*)tex, ix, iy, out, B, C, H, W, P, G, nearest);
+  grid_sample_fwd_kernel<M><<<(unsigned)(((size_t)B * P + per_block - 1)
+                                         / per_block), THREADS, 0, s>>>(
+      (const float4*)tex, src, out, B, C, H, W, P, G, nearest);
   return (int)cudaGetLastError();
 }
 
-// grid_sample_backward's scratch for these shapes (have_tex: the caller
-// passes the forward's interleaved copy): out[0] its bytes, out[1..3] the
-// byte offsets of the tiles' list starts and lengths (B * T ints each) and
-// of the lists (point indices b * P + p), out[4] the tiles T of a batch
-// element (TILE x TILE texels, row-major), out[5] the slots of partial
-// tiles.
-int grid_sample_backward_layout(int B, int C, int H, int W, int P,
-                                int nearest, int have_tex, long long* out) {
-  const Layout L = make_layout(B, C, H, W, P, nearest,
-                               !nearest && !have_tex);
-  out[0] = (long long)L.bytes;
-  out[1] = (long long)L.tile_start;
-  out[2] = (long long)L.tile_n;
-  out[3] = (long long)L.list;
-  out[4] = L.g.T;
-  out[5] = L.slots;
-  return 0;
-}
-
-// dmaps (B, C, H, W), dix and diy (B, P): every entry written. tex: the
-// forward's interleaved copy (B, H, W, C4), or null to make it here in the
-// scratch (bilinear only); scratch: grid_sample_backward_scratch's bytes.
-// Seven launches at most: the copy, a memset, then steps 1-4 (with 3b).
-int grid_sample_backward(const float* maps, const float* tex,
-                         const float* ix, const float* iy, const float* cot,
-                         float* dmaps, float* dix, float* diy, void* scratch,
-                         int B, int C, int H, int W, int P, int nearest,
-                         int device, void* stream) {
+// The backward: the copy where tex is null (bilinear), a memset, then
+// steps 1-4 (with 3b). d0, d1: dix and diy (Sampler) or duv and null (Uv).
+template <Coords M>
+int backward(const float* maps, const float* tex, Src src, const float* cot,
+             float* dmaps, float* d0, float* d1, void* scratch, int B, int C,
+             int H, int W, int P, int nearest, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || H == 0 || W == 0) return (int)cudaGetLastError();
@@ -825,10 +931,10 @@ int grid_sample_backward(const float* maps, const float* tex,
   const int ntiles = B * g.T;
   const size_t points = (size_t)B * P;
   if (points > 0)
-    gs_bwd_point_kernel<<<(unsigned)((points + POINT_THREADS - 1)
-                                     / POINT_THREADS), POINT_THREADS, 0,
-                          s>>>((const float4*)tex, ix, iy, cot, dix, diy,
-                               rec, cnt, g);
+    gs_bwd_point_kernel<M><<<(unsigned)((points + POINT_THREADS - 1)
+                                        / POINT_THREADS), POINT_THREADS, 0,
+                             s>>>((const float4*)tex, src, cot, d0, d1, rec,
+                                  cnt, g);
   const unsigned bin_blocks =
       (unsigned)(((size_t)B * g.NCH * 32 + BIN_THREADS - 1) / BIN_THREADS);
   gs_bwd_scan_kernel<<<ntiles, SCAN_THREADS, 0, s>>>(
@@ -840,7 +946,7 @@ int grid_sample_backward(const float* maps, const float* tex,
                                                             g);
   const size_t smem = (size_t)SUM_WARPS * min(C, SUM_CG) * TILE_TEXELS * 4;
   // the copies take 96 KB at C >= 3, past the default
-  err = cudaFuncSetAttribute(gs_bwd_sum_kernel,
+  err = cudaFuncSetAttribute(gs_bwd_sum_kernel<M>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -849,12 +955,90 @@ int grid_sample_backward(const float* maps, const float* tex,
       (int*)(base + L.tile_start), (int*)(base + L.tile_n),
       (int*)(base + L.entries), L.slots, (int*)(base + L.tile_items),
       (int*)(base + L.owner), ntiles);
-  gs_bwd_sum_kernel<<<ntiles + L.slots, SUM_WARPS * 32, smem, s>>>(
+  gs_bwd_sum_kernel<M><<<ntiles + L.slots, SUM_WARPS * 32, smem, s>>>(
       list, (int*)(base + L.tile_start), (int*)(base + L.tile_n),
       (int*)(base + L.tile_items), (int*)(base + L.owner),
-      (int*)(base + L.entries), L.slots, (int*)(base + L.done), ix, iy,
-      cot, (float*)(base + L.partials), dmaps, g, ntiles);
+      (int*)(base + L.entries), L.slots, (int*)(base + L.done), src, cot,
+      (float*)(base + L.partials), dmaps, g, ntiles);
   return (int)cudaGetLastError();
+}
+
+Src sampler_src(const float* ix, const float* iy) {
+  return Src{ix, iy, nullptr, 0, 0};
+}
+
+Src uv_src(const float* uv, long long sb, long long sp) {
+  return Src{nullptr, nullptr, uv, sb, sp};
+}
+
+}  // namespace
+
+extern "C" {
+
+// tex (B, H, W, C4) float scratch, C4 = C rounded up to a multiple of 4;
+// out (B, P, C), every entry written. Two launches on the stream: the
+// interleaved copy, then the sampler.
+int grid_sample_forward(const float* maps, const float* ix, const float* iy,
+                        float* tex, float* out, int B, int C, int H, int W,
+                        int P, int nearest, int device, void* stream) {
+  return forward<Coords::Sampler>(maps, sampler_src(ix, iy), tex, out, B, C,
+                                  H, W, P, nearest, device, stream);
+}
+
+// grid_sample_forward at OpenGL UVs: u of point (b, p) at uv[b * sb + p *
+// sp], v at the next float (the header's Uv mode); B * P < 2^29, as the
+// backward takes.
+int grid_sample_uv_forward(const float* maps, const float* uv, long long sb,
+                           long long sp, float* tex, float* out, int B, int C,
+                           int H, int W, int P, int nearest, int device,
+                           void* stream) {
+  return forward<Coords::Uv>(maps, uv_src(uv, sb, sp), tex, out, B, C, H, W,
+                             P, nearest, device, stream);
+}
+
+// grid_sample_backward's scratch for these shapes (have_tex: the caller
+// passes the forward's interleaved copy), in either mode: out[0] its
+// bytes, out[1..3] the byte offsets of the tiles' list starts and lengths
+// (B * T ints each) and of the lists (point indices b * P + p), out[4] the
+// tiles T of a batch element (TILE x TILE texels, row-major), out[5] the
+// slots of partial tiles.
+int grid_sample_backward_layout(int B, int C, int H, int W, int P,
+                                int nearest, int have_tex, long long* out) {
+  const Layout L = make_layout(B, C, H, W, P, nearest,
+                               !nearest && !have_tex);
+  out[0] = (long long)L.bytes;
+  out[1] = (long long)L.tile_start;
+  out[2] = (long long)L.tile_n;
+  out[3] = (long long)L.list;
+  out[4] = L.g.T;
+  out[5] = L.slots;
+  return 0;
+}
+
+// dmaps (B, C, H, W), dix and diy (B, P): every entry written. tex: the
+// forward's interleaved copy (B, H, W, C4), or null to make it here in the
+// scratch (bilinear only); scratch: grid_sample_backward_layout's bytes.
+// Seven launches at most: the copy, a memset, then steps 1-4 (with 3b).
+int grid_sample_backward(const float* maps, const float* tex,
+                         const float* ix, const float* iy, const float* cot,
+                         float* dmaps, float* dix, float* diy, void* scratch,
+                         int B, int C, int H, int W, int P, int nearest,
+                         int device, void* stream) {
+  return backward<Coords::Sampler>(maps, tex, sampler_src(ix, iy), cot,
+                                   dmaps, dix, diy, scratch, B, C, H, W, P,
+                                   nearest, device, stream);
+}
+
+// grid_sample_backward at OpenGL UVs (as grid_sample_uv_forward takes
+// them): dmaps and duv (B, P, 2), every entry written.
+int grid_sample_uv_backward(const float* maps, const float* tex,
+                            const float* uv, long long sb, long long sp,
+                            const float* cot, float* dmaps, float* duv,
+                            void* scratch, int B, int C, int H, int W, int P,
+                            int nearest, int device, void* stream) {
+  return backward<Coords::Uv>(maps, tex, uv_src(uv, sb, sp), cot, dmaps, duv,
+                              nullptr, scratch, B, C, H, W, P, nearest,
+                              device, stream);
 }
 
 }  // extern "C"

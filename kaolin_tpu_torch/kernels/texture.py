@@ -26,11 +26,23 @@ sums in a fixed order (the grid's), so both are deterministic.
 
 Coordinates are the sampler's: ``ix`` in [0, W - 1] and ``iy`` in
 [0, H - 1], unnormalised and clipped by the caller
-(``render.mesh.grid_sample_2d``).
+(``render.mesh.grid_sample_2d``). :func:`grid_sample_uv` and
+:func:`grid_sample_uv_backward` take OpenGL UVs instead, on the card only:
+the same kernels, compiled in their UV mode, convert each point in its
+thread with the operations of ``render.mesh.texture_mapping``'s PyTorch
+composition in their order (``clip(u, 0, 1) * 2 - 1``, for v also ``* -1``,
+then ``clip(((. + 1) * W - 1) / 2, 0, W - 1)``), and the backward takes
+each point's dix, diy through that composition's backward in autograd's
+order (each clip's min factor, then its max factor, as ``_balanced`` gives
+them; ``/ 2``; ``* W``; for v ``* -1``; ``+ 0`` where the two selects'
+gradients are summed; ``* 2``) to the UVs' gradient. No coordinate array
+is stored, and samples, the texture gradient and the UVs' gradient are the
+composition's bits (``grid_sample_coords`` on ``_uv_coords``).
 """
 
 import ctypes
 import functools
+import math
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -41,15 +53,20 @@ from ..casts import to_int
 
 __all__ = ['grid_sample', 'grid_sample_plain', 'grid_sample_backward',
            'grid_sample_backward_plain', 'grid_sample_coords',
+           'grid_sample_uv', 'grid_sample_uv_backward',
            'tile_lists_plain', 'texture_grad_tiled_plain']
 
 _MODES = ('bilinear', 'nearest')
 _F32 = torch.float32
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     'grid_sample_forward': [_P] * 5 + [_I] * 7 + [_P],
+    'grid_sample_uv_forward': [_P] * 2 + [_L] * 2 + [_P] * 2 + [_I] * 7
+    + [_P],
     'grid_sample_backward_layout': [_I] * 7 + [_P],
     'grid_sample_backward': [_P] * 9 + [_I] * 7 + [_P],
+    'grid_sample_uv_backward': [_P] * 3 + [_L] * 2 + [_P] * 4 + [_I] * 7
+    + [_P],
 }
 # the backward kernels' constants (csrc/grid_sample.cu): the texel tiles'
 # side, the list entries a block sums, the warps of that block, each with
@@ -371,18 +388,8 @@ def _backward(maps, ix, iy, cot, mode, interleaved=None, lists=False):
     P = x.shape[1]
     _build.check_shapes('grid_sample_backward', x, (B, P), y, (B, P), g,
                         (B, P, C))
-    if 4 * B * P >= 2 ** 31:
-        raise ValueError(f'grid_sample_backward: {B} x {P} points; the '
-                         'kernels take fewer than 2^29')
-    nearest = mode == 'nearest'
-    inter = None if nearest else interleaved
-    if inter is not None:
-        _build.check_shapes('grid_sample_backward', inter,
-                            (B, H, W, -(-C // 4) * 4))
-        inter = _build.cuda_inputs('grid_sample_backward', (inter,))[0][0]
-    nbytes, o_start, o_n, o_list, ntiles, _ = _backward_layout(
-        B, C, H, W, P, nearest, inter is not None)
-    scratch = torch.empty(nbytes, dtype=torch.uint8, device=tex.device)
+    nearest, inter, scratch, layout = _backward_scratch(
+        'grid_sample_backward', tex, P, mode, interleaved)
     dmaps = torch.empty_like(tex)
     dix, diy = x.new_empty((B, P)), y.new_empty((B, P))
     _build.launch(_lib(), 'grid_sample_backward', tex.data_ptr(),
@@ -393,12 +400,31 @@ def _backward(maps, ix, iy, cot, mode, interleaved=None, lists=False):
     grid_sample_backward.launches += 1
     if not lists:
         return dmaps, dix, diy
+    _, o_start, o_n, o_list, ntiles, _ = layout
 
     def ints(offset, n):
         return scratch[offset:offset + 4 * n].view(torch.int32)
     starts, counts = ints(o_start, B * ntiles), ints(o_n, B * ntiles)
     return dmaps, dix, diy, (ints(o_list, int(counts.sum())), starts,
                              counts)
+
+
+def _backward_scratch(fn, tex, P, mode, interleaved):
+    """The backward's checked interleaved copy (None in nearest mode or
+    where not given), its scratch and its layout, for checked CUDA
+    ``tex`` (B, C, H, W) and P points a batch element."""
+    B, C, H, W = tex.shape
+    if 4 * B * P >= 2 ** 31:
+        raise ValueError(f'{fn}: {B} x {P} points; the kernels take fewer '
+                         'than 2^29')
+    nearest = mode == 'nearest'
+    inter = None if nearest else interleaved
+    if inter is not None:
+        _build.check_shapes(fn, inter, (B, H, W, -(-C // 4) * 4))
+        inter = _build.cuda_inputs(fn, (inter,))[0][0]
+    layout = _backward_layout(B, C, H, W, P, nearest, inter is not None)
+    scratch = torch.empty(layout[0], dtype=torch.uint8, device=tex.device)
+    return nearest, inter, scratch, layout
 
 
 grid_sample.launches = 0
@@ -428,3 +454,132 @@ def grid_sample_coords(input_maps, ix, iy, mode='bilinear'):
     """Differentiable :func:`grid_sample`: gradients to the maps and to
     both coordinates through :func:`grid_sample_backward`."""
     return _GridSampleCoords.apply(input_maps, ix, iy, mode)
+
+
+def _uv_points(uv):
+    """(B, P, batch stride, point stride), strides in floats, of UVs (B,
+    ..., 2) whose last dimension has stride 1 and whose points flatten to
+    (B, P) with one stride (a contiguous map, the rasterizer's view of
+    its feature map); None for any other layout."""
+    if uv.dim() < 2 or uv.shape[-1] != 2 or uv.stride(-1) != 1:
+        return None
+    dims = [(n, st) for n, st in zip(uv.shape[1:-1], uv.stride()[1:-1])
+            if n != 1]
+    sp = dims[-1][1] if dims else 2
+    want = sp
+    for n, st in reversed(dims):
+        if st != want:
+            return None
+        want = st * n
+    return uv.shape[0], math.prod(uv.shape[1:-1]), uv.stride(0), sp
+
+
+def _uv_inputs(fn, maps, uv, mode):
+    """Checked inputs of the UV route: (contiguous maps, (B, P, batch
+    stride, point stride) of ``uv``, device index, stream). ``uv`` must be
+    read where it lies (:func:`_uv_points`); :func:`grid_sample_uv` copies
+    any other layout before it gets here."""
+    _check_mode(mode)
+    _check_devices(fn, maps, uv)
+    if not _is_cuda(maps) or maps.dtype != _F32 or uv.dtype != _F32:
+        raise TypeError(f'{fn}: the UV route takes CUDA float32 tensors, got '
+                        f'{maps.dtype} on {maps.device}, {uv.dtype}')
+    if maps.dim() != 4 or uv.dim() < 2 or uv.shape[0] != maps.shape[0] \
+            or uv.shape[-1] != 2:
+        raise ValueError(f'{fn}: maps (B, C, H, W) and UVs (B, ..., 2), '
+                         f'got {tuple(maps.shape)} and {tuple(uv.shape)}')
+    pts = _uv_points(uv)
+    if pts is None:
+        raise ValueError(f'{fn}: UVs of strides {uv.stride()} do not '
+                         'flatten to (B, P) points with one stride')
+    if 4 * pts[0] * pts[1] >= 2 ** 31:
+        raise ValueError(f'{fn}: {pts[0]} x {pts[1]} points; the kernels '
+                         'take fewer than 2^29')
+    return maps.contiguous(), pts, maps.device.index, _build.stream(
+        maps.device)
+
+
+def _sample_uv(maps, uv, mode):
+    """:func:`grid_sample_uv`'s samples (B, P, C) and interleaved copy."""
+    maps, (B, P, sb, sp), dev, stream = _uv_inputs('grid_sample_uv', maps,
+                                                   uv, mode)
+    _, C, H, W = maps.shape
+    tex = torch.empty((B, H, W, -(-C // 4) * 4), dtype=_F32,
+                      device=maps.device)
+    out = torch.empty((B, P, C), dtype=_F32, device=maps.device)
+    _build.launch(_lib(), 'grid_sample_uv_forward', maps.data_ptr(),
+                  uv.data_ptr(), sb, sp, tex.data_ptr(), out.data_ptr(), B,
+                  C, H, W, P, int(mode == 'nearest'), dev, stream)
+    grid_sample_uv.launches += 1
+    return out, tex
+
+
+def grid_sample_uv_backward(maps, uv, cot, mode='bilinear',
+                            interleaved=None):
+    """Gradients of :func:`grid_sample_uv` for the cotangent ``cot`` (B, P,
+    C): (dmaps (B, C, H, W), duv in ``uv``'s shape), the bits of
+    ``grid_sample_coords`` on ``render.mesh.utils._uv_coords`` (the
+    module's docstring). ``uv`` as :func:`grid_sample_uv` reads it (its
+    points flatten to (B, P) with one stride); ``interleaved``: the
+    forward's (B, H, W, C4) copy of the texture. CUDA float32 only."""
+    fn = 'grid_sample_uv_backward'
+    maps, (B, P, sb, sp), dev, stream = _uv_inputs(fn, maps, uv, mode)
+    _check_devices(fn, maps, cot)
+    _, C, H, W = maps.shape
+    if cot.dtype != _F32:
+        raise TypeError(f'{fn}: the cotangent is {cot.dtype}, not float32')
+    _build.check_shapes(fn, cot, (B, P, C))
+    cot = cot.contiguous()
+    nearest, inter, scratch, _ = _backward_scratch(fn, maps, P, mode,
+                                                   interleaved)
+    dmaps = torch.empty_like(maps)
+    duv = uv.new_empty((B, P, 2))
+    _build.launch(_lib(), fn, maps.data_ptr(),
+                  None if inter is None else inter.data_ptr(), uv.data_ptr(),
+                  sb, sp, cot.data_ptr(), dmaps.data_ptr(), duv.data_ptr(),
+                  scratch.data_ptr(), B, C, H, W, P, int(nearest), dev,
+                  stream)
+    grid_sample_uv_backward.launches += 1
+    return dmaps, duv.reshape(uv.shape)
+
+
+class _GridSampleUv(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, maps, uv, mode):
+        ctx.save_for_backward(maps, uv)
+        ctx.mode = mode
+        out, ctx.interleaved = _sample_uv(maps, uv, mode)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, cot):
+        maps, uv = ctx.saved_tensors
+        dmaps, duv = grid_sample_uv_backward(maps, uv, cot, ctx.mode,
+                                             ctx.interleaved)
+        ctx.interleaved = None
+        return dmaps, duv, None
+
+
+def grid_sample_uv(input_maps, uv, mode='bilinear'):
+    """Differentiable sampling of (B, C, H, W) ``input_maps`` at OpenGL UVs
+    ``uv`` (B, ..., 2) in [0, 1], v bottom to top (``align_corners=False``,
+    border padding); returns (B, P, C), P the points of ``uv``. Gradients
+    to the maps and the UVs by :func:`grid_sample_uv_backward`.
+
+    CUDA float32 only (``render.mesh.texture_mapping`` takes the PyTorch
+    composition elsewhere). UVs whose last dimension has stride 1 and whose
+    points flatten to (B, P) with one stride are read where they lie (the
+    rasterizer's stride-3 view of its feature map, a contiguous map); any
+    other layout is copied first. Fewer than 2^29 points in all. Saves the
+    maps, ``uv`` and the forward's interleaved copy for the backward, and
+    no coordinate array.
+    """
+    if _uv_points(uv) is None:
+        uv = uv.contiguous()
+    return _GridSampleUv.apply(input_maps, uv, mode)
+
+
+grid_sample_uv.launches = 0
+grid_sample_uv_backward.launches = 0

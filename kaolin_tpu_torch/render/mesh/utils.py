@@ -4,7 +4,11 @@ rendering. Port of ``kaolin_tpu/render/mesh/utils.py``.
 ``grid_sample_2d`` and ``texture_mapping`` sample through
 ``kaolin_tpu_torch.kernels.texture``: the CUDA kernels for CUDA tensors,
 the plain versions for CPU tensors. The JAX package's ``backend`` argument
-is dropped: the device picks the route, as in ``rasterize``.
+is dropped: the device picks the route, as in ``rasterize``. On CUDA
+float32 tensors ``texture_mapping`` hands the UVs to the kernels' UV mode
+(``grid_sample_uv``), which converts and clips them in-thread with the
+operations of ``_uv_coords`` below, both ways, to the same bits; elsewhere
+it runs that composition in PyTorch.
 
 Clipping is ``minimum(maximum(x, lo), hi)`` with tensor bounds, which
 gives half the gradient where ``x`` equals a bound, as ``jnp.clip`` does
@@ -18,7 +22,7 @@ import torch.nn.functional as F
 from .. import camera
 from ... import ops
 from ...kernels import _build
-from ...kernels.texture import grid_sample_coords
+from ...kernels.texture import grid_sample_coords, grid_sample_uv
 from ...tracing import span
 
 __all__ = ['texture_mapping', 'spherical_harmonic_lighting',
@@ -109,7 +113,14 @@ def texture_mapping(texture_coordinates, texture_maps, mode='nearest'):
     """Samples texture maps at dense or sparse UV coordinates.
 
     UVs are OpenGL-style in [0, 1] with y bottom-to-top; converted to
-    sampler coords internally.
+    sampler coords internally. On CUDA float32 tensors the sampler's
+    kernels do the conversion and its clips in-thread, forward and
+    backward (``kernels.texture.grid_sample_uv``): the UVs are read where
+    they lie when their last dimension has stride 1 and their points
+    flatten with one stride (the rasterizer's view of its feature map, a
+    contiguous map), else copied first; the samples and both gradients are
+    the bits of the PyTorch composition (``_uv_coords``, then
+    ``grid_sample_coords``), which runs on the CPU and in float64.
 
     Args:
         texture_coordinates: (batch_size, h, w, 2) or (batch_size,
@@ -123,9 +134,14 @@ def texture_mapping(texture_coordinates, texture_maps, mode='nearest'):
     with span('kaolin.texture_mapping'):
         batch_size = texture_coordinates.shape[0]
         num_channels = texture_maps.shape[1]
-        sampled = grid_sample_coords(
-            texture_maps, *_uv_coords(texture_coordinates,
-                                      *texture_maps.shape[2:]), mode)
+        if texture_maps.is_cuda and texture_coordinates.is_cuda \
+                and texture_maps.dtype == texture_coordinates.dtype \
+                == torch.float32:
+            sampled = grid_sample_uv(texture_maps, texture_coordinates, mode)
+        else:
+            sampled = grid_sample_coords(
+                texture_maps, *_uv_coords(texture_coordinates,
+                                          *texture_maps.shape[2:]), mode)
         return sampled.reshape(batch_size, *texture_coordinates.shape[1:-1],
                                num_channels)
 

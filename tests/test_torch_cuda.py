@@ -14,10 +14,12 @@ another order than the plain versions: each gradient entry agrees to 1e-4
 of itself plus 1e-4 of the median nonzero entry, and two launches give the
 same bits. The soft mask's cut agrees exactly. The grid-sample kernels
 repeat the plain versions' operations too: the samples and the coordinate
-gradients agree exactly; the texture gradient sums in a fixed order of its
-own, agrees entry by entry as the other gradients do, and is bit for bit
-the order written out in ``texture_grad_tiled_plain``, its lists those of
-``tile_lists_plain``. The DefTet
+gradients agree exactly (in their UV mode, behind ``texture_mapping``, the
+samples and both gradients are the PyTorch composition's bits); the
+texture gradient sums in a fixed order of its own, agrees entry by entry
+as the other gradients do, and is bit for bit the order written out in
+``texture_grad_tiled_plain``, its lists those of ``tile_lists_plain``.
+The DefTet
 selection and the SPC traversal score and test as their plain versions do,
 so face ids, ray and point ids, counts and depths agree exactly.
 """
@@ -586,13 +588,104 @@ def test_textured_step_on_card_matches_cpu(cuda):
             torch.zeros(2, 24, 40, 3, device=device))
         return loss, torch.autograd.grad(loss, params)
 
-    n = ktex.grid_sample_backward.launches
+    n = ktex.grid_sample_uv_backward.launches
     (lg, gpu), (lc, cpu) = grads(cuda), grads('cpu')
-    assert ktex.grid_sample_backward.launches == n + 1
+    assert ktex.grid_sample_uv_backward.launches == n + 1
     torch.testing.assert_close(lg.cpu(), lc, rtol=1e-5, atol=0)
     for g, c in zip(gpu, cpu):
         assert torch.isfinite(g).all() and (g != 0).any()
         _grad_close(g.cpu(), c)
+
+
+def _nan_equal(a, b):
+    """``torch.equal`` with NaN equal to NaN, of one shape and dtype."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.isnan(), b.isnan())
+            and torch.equal(torch.where(a.isnan(), 0., a),
+                            torch.where(b.isnan(), 0., b)))
+
+
+UV_SHAPES = {'dense': (2, 24, 33, 2), 'raster': (2, 24, 33, 3),
+             'sparse': (2, 700, 2), 'transposed': (2, 33, 24, 2),
+             'hot': (2, 20000, 2)}
+
+
+def _uv_case(device, layout, C, H, W, seed):
+    """A texture (2, C, H, W), UVs as texture_mapping meets them (a
+    contiguous map, the rasterizer's stride-3 view of a (2, h, w, 3) map,
+    sparse points, a transposed map whose points do not flatten with one
+    stride, 20,000 points nine in ten at UV 0) with 0, 1, values below 0
+    and above 1, the UVs of the clip bounds (1/(2W), 1 - 1/(2W), 1/(2H),
+    1 - 1/(2H)), NaN and +-inf planted, and a cotangent with NaN and +-inf
+    entries. Returns (leaf, uv, maps, cot)."""
+    rng = np.random.default_rng(seed)
+    uv = rng.uniform(-0.2, 1.2, UV_SHAPES[layout])
+    if layout == 'hot':
+        uv[:, rng.random(uv.shape[1]) < 0.9] = 0.
+    flat = uv.reshape(-1)
+    flat[:24] = [0., 1., 0., 0., 1., 1., -0.3, 1.4, 1. / (2 * W),
+                 1. - 1. / (2 * W), 1. / (2 * H), 1. - 1. / (2 * H), np.nan,
+                 np.inf, -np.inf, np.nan, 0.5, 1. / (2 * W), 0., 1.,
+                 1. / (2 * H), 1. - 1. / (2 * W), -np.inf, 2.]
+    leaf = torch.tensor(uv, dtype=torch.float32, device=device,
+                        requires_grad=True)
+    view = {'raster': lambda t: t[..., :2],
+            'transposed': lambda t: t.transpose(1, 2)}.get(layout,
+                                                             lambda t: t)
+    maps = torch.tensor(rng.random((2, C, H, W)), dtype=torch.float32,
+                        device=device, requires_grad=True)
+    cot = rng.standard_normal(view(leaf).shape[:-1] + (C,))
+    cot.reshape(-1)[[5, 40, 41, 97]] = [np.nan, np.inf, -np.inf, np.nan]
+    return leaf, view(leaf), maps, torch.tensor(cot, dtype=torch.float32,
+                                                device=device)
+
+
+@pytest.mark.parametrize('layout', list(UV_SHAPES))
+@pytest.mark.parametrize('C', [1, 2, 3, 4, 5])
+@pytest.mark.parametrize('mode', ['bilinear', 'nearest'])
+def test_uv_route_matches_composition(cuda, layout, C, mode):
+    """texture_mapping's UV route (the sampler's kernels in their UV mode)
+    against the PyTorch composition it replaces (``grid_sample_coords``
+    on ``_uv_coords``): the samples, the texture gradient and the UVs'
+    gradient the same bits, NaN where it has NaN; one launch of the UV
+    route's forward and backward a call, none of the sampler route's."""
+    from kaolin_tpu_torch.render.mesh.utils import _uv_coords
+    H, W = 37, 40
+    leaf, uv, maps, cot = _uv_case(cuda, layout, C, H, W, 12)
+    counters = (ktex.grid_sample_uv, ktex.grid_sample_uv_backward,
+                ktex.grid_sample, ktex.grid_sample_backward)
+    before = [c.launches for c in counters]
+    out = kt.render.mesh.texture_mapping(uv, maps, mode)
+    got = torch.autograd.grad(out, (maps, leaf), cot)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [1, 1, 0, 0]
+    ref_out = ktex.grid_sample_coords(maps, *_uv_coords(uv, H, W), mode)
+    ref = torch.autograd.grad(ref_out, (maps, leaf),
+                              cot.reshape(ref_out.shape))
+    assert _nan_equal(out, ref_out.reshape(out.shape))
+    assert _nan_equal(got[0], ref[0]) and _nan_equal(got[1], ref[1])
+    assert got[1].isnan().any() == (mode == 'bilinear')
+    if mode == 'nearest':
+        assert not got[1].any()
+    again = torch.autograd.grad(kt.render.mesh.texture_mapping(uv, maps, mode),
+                                (maps, leaf), cot)
+    assert all(_nan_equal(a, b) for a, b in zip(got, again))
+
+
+def test_uv_route_counts_only_cuda_float32(cuda):
+    """The UV route's counters move on CUDA float32 alone: on CPU tensors
+    texture_mapping runs the composition, and in float64 on the card the
+    composition's sampler raises as before."""
+    leaf, uv, maps, _ = _uv_case(cuda, 'raster', 3, 16, 16, 13)
+    before = (ktex.grid_sample_uv.launches,
+              ktex.grid_sample_uv_backward.launches)
+    out = kt.render.mesh.texture_mapping(uv.cpu(), maps.cpu(), 'bilinear')
+    out.sum().backward()
+    with pytest.raises(TypeError, match='float32'):
+        kt.render.mesh.texture_mapping(uv.double(), maps.double(),
+                                       'bilinear')
+    assert before == (ktex.grid_sample_uv.launches,
+                      ktex.grid_sample_uv_backward.launches)
 
 
 def _clouds(device, seed, shape1, shape2):

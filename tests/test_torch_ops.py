@@ -271,7 +271,7 @@ def _c_entry_points():
     import ctypes
     import re
     kinds = {'p': ctypes.c_void_p, 'float': ctypes.c_float,
-             'int': ctypes.c_int}
+             'int': ctypes.c_int, 'long long': ctypes.c_longlong}
     out = {}
     for src in (ROOT / 'kaolin_tpu_torch' / 'csrc').glob('*.cu'):
         text = src.read_text()
@@ -279,7 +279,7 @@ def _c_entry_points():
         for name, params in re.findall(r'\nint (\w+)\(([^)]*)\)\s*\{', text):
             types = []
             for param in params.split(','):
-                kind = 'p' if '*' in param else param.split()[0]
+                kind = 'p' if '*' in param else ' '.join(param.split()[:-1])
                 types.append(kinds[kind])
             out[name] = types
     return out
@@ -299,7 +299,7 @@ def test_ctypes_signatures_match_sources():
         for name, argtypes in mod._SIGNATURES.items():
             assert entry[name] == argtypes, name
             seen += 1
-    assert seen == len(entry) == 19
+    assert seen == len(entry) == 21
 
 
 def test_nn_layout_matches_source():

@@ -25,6 +25,7 @@ import kaolin_tpu_torch as kt
 from kaolin_tpu.render.camera import CameraExtrinsics
 from kaolin_tpu_torch.kernels import texture as ktex
 from __graft_entry__ import _icosphere
+from test_torch_cuda import _nan_equal
 
 DTYPES = [np.float64, np.float32]
 MODES = ['bilinear', 'nearest']
@@ -175,6 +176,176 @@ def test_texture_mapping(dtype, mode, layout):
         lambda u, m: kal.render.mesh.texture_mapping(u, m, mode=mode),
         lambda u, m: kt.render.mesh.texture_mapping(u, m, mode=mode),
         (uv, tex), cot, diff=(1, 0)), dtype, mode == 'nearest')
+
+
+def _uv_layout(layout, dtype, seed, bad=False):
+    """UVs of ``_uvs`` as texture_mapping meets them: a contiguous
+    (2, 7, 9, 2) map, the rasterizer's view of a (2, 7, 9, 3) feature map
+    (stride 3), sparse (2, 30, 2) points, or a transposed map whose points
+    do not flatten with one stride. ``bad``: NaN, +-inf and the UVs of the
+    clip bounds of a (13, 16) texture planted too."""
+    dense = layout in ('dense', 'raster', 'transposed')
+    shape = (2, 7, 9, 3 if layout == 'raster' else 2) if dense else (2, 30, 2)
+    uv = _uvs(shape, dtype, seed)
+    if bad:
+        flat = uv.reshape(-1)
+        flat[12:22] = [np.nan, np.inf, -np.inf, 1. / 32., 1. - 1. / 32.,
+                       1. / 26., 1. - 1. / 26., np.nan, -0.5, 2.]
+    t = _t(uv, True)
+    if layout == 'raster':
+        return t, t[..., :2]
+    if layout == 'transposed':
+        return t, t.transpose(1, 2)
+    return t, t
+
+
+def _composition(uv, maps, mode):
+    """texture_mapping's PyTorch composition, (B, P, C)."""
+    from kaolin_tpu_torch.render.mesh.utils import _uv_coords
+    return ktex.grid_sample_coords(maps, *_uv_coords(uv, *maps.shape[2:]),
+                                   mode)
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('mode', MODES)
+@pytest.mark.parametrize('layout', ['dense', 'raster', 'sparse',
+                                    'transposed'])
+def test_texture_mapping_on_cpu_keeps_composition(dtype, mode, layout):
+    """On the CPU texture_mapping runs the PyTorch composition, whatever
+    the UVs' layout: its samples and both gradients are the composition's
+    bits, and the UV route's counters do not move."""
+    rng = np.random.default_rng(7)
+    leaf, uv = _uv_layout(layout, dtype, 8, bad=True)
+    maps = _t(rng.random((2, 3, 13, 16)).astype(dtype), True)
+    counts = (ktex.grid_sample_uv.launches,
+              ktex.grid_sample_uv_backward.launches)
+    out = kt.render.mesh.texture_mapping(uv, maps, mode=mode)
+    cot = _t(rng.standard_normal(out.shape).astype(dtype))
+    got = torch.autograd.grad(out, (maps, leaf), cot)
+    ref_out = _composition(uv, maps, mode)
+    ref = torch.autograd.grad(ref_out, (maps, leaf), cot.reshape(
+        ref_out.shape))
+    assert _nan_equal(out, ref_out.reshape(out.shape))
+    assert all(_nan_equal(a, b) for a, b in zip(got, ref))
+    assert counts == (ktex.grid_sample_uv.launches,
+                      ktex.grid_sample_uv_backward.launches)
+
+
+@pytest.mark.parametrize('case', [
+    ((2, 7, 9, 2), None, (2, 63, 126, 2)),
+    ((2, 7, 9, 3), 'raster', (2, 63, 189, 3)),
+    ((2, 30, 2), None, (2, 30, 60, 2)),
+    ((3, 2), None, (3, 1, 2, 2)),
+    ((2, 1, 9, 2), None, (2, 9, 18, 2)),
+    ((2, 7, 1, 2), None, (2, 7, 14, 2)),
+    ((2, 7, 9, 2), 'transposed', None),
+    ((2, 7, 9, 4), 'raster', (2, 63, 252, 4)),
+    ((2, 2, 9), 'last', None),
+    ((2, 5, 3), None, None)])
+def test_uv_points_layouts(case):
+    """The UV route reads UVs in place when their last dimension (of 2)
+    has stride 1 and their points flatten to (B, P) with one stride:
+    (B, P, batch stride, point stride) in floats, else None."""
+    shape, view, want = case
+    t = torch.zeros(shape)
+    if view == 'raster':
+        t = t[..., :2]
+    elif view in ('transposed', 'last'):
+        t = t.transpose(1, 2)
+    assert ktex._uv_points(t) == want
+
+
+def _thread_coords(u, v, H, W):
+    """The UV kernels' in-thread conversion (``uv_to_sampler`` of
+    ``csrc/grid_sample.cu``) written out in float32 PyTorch, operation for
+    operation: torch.maximum / torch.minimum keep a NaN, as its t_max and
+    t_min do."""
+    lo, one = torch.tensor(0.), torch.tensor(1.)
+
+    def clip(x, hi):
+        return torch.minimum(torch.maximum(x, lo), torch.tensor(float(hi)))
+
+    gu = clip(u, one) * 2. - 1.
+    gv = (clip(v, one) * 2. - 1.) * -1.
+    return (clip(((gu + 1.) * float(W) - 1.) / 2., W - 1),
+            clip(((gv + 1.) * float(H) - 1.) / 2., H - 1), gu, gv)
+
+
+def _thread_vjp(u, v, gu, gv, H, W, dix, diy):
+    """The UV kernels' ``uv_vjp``: dix, diy through the composition's
+    backward in autograd's order, written out in float32 PyTorch."""
+    lo = torch.tensor(0.)
+
+    def balanced(x, ans, other):
+        return torch.where(x == ans, torch.where(other == ans, .5, 1.),
+                           0.).float()
+
+    def clip_vjp(x, hi, g):
+        hi = torch.tensor(float(hi))
+        m = torch.maximum(x, lo)
+        y = torch.minimum(m, hi)
+        return (g * balanced(m, y, hi)) * balanced(x, m, lo)
+
+    def axis_vjp(a, n, g):
+        return (clip_vjp(((a + 1.) * float(n) - 1.) / 2., n - 1, g)
+                / 2.) * float(n)
+
+    eu = axis_vjp(gu, W, dix) + 0.
+    ev = axis_vjp(gv, H, diy) * -1. + 0.
+    return clip_vjp(u, 1, eu * 2.), clip_vjp(v, 1, ev * 2.)
+
+
+@pytest.mark.parametrize('mode', MODES)
+@pytest.mark.parametrize('layout', ['dense', 'raster', 'sparse'])
+def test_uv_thread_arithmetic_is_the_composition(mode, layout):
+    """The UV kernels' arithmetic, written out (``_thread_coords``,
+    ``_thread_vjp``), on the plain versions' samples and dix, diy: the
+    composition's sampler coordinates, samples and UV gradient bit for bit
+    in float32, with NaN, +-inf, ties at the clip bounds and NaN and inf
+    cotangents."""
+    from kaolin_tpu_torch.render.mesh.utils import _uv_coords
+    rng = np.random.default_rng(9)
+    H, W = 13, 16
+    leaf, uv = _uv_layout(layout, np.float32, 10, bad=True)
+    maps = _t(rng.random((2, 3, H, W)).astype(np.float32), True)
+    flat = uv.reshape(2, -1, 2)
+    ix, iy = _uv_coords(flat, H, W)
+    ref_out = ktex.grid_sample_coords(maps, ix, iy, mode)
+    cot = rng.standard_normal(ref_out.shape).astype(np.float32)
+    cot.reshape(-1)[[3, 50, 77]] = [np.nan, np.inf, -np.inf]
+    cot = _t(cot)
+    ref_duv = torch.autograd.grad(ref_out, leaf, cot)[0]
+    u, v = flat[..., 0].detach(), flat[..., 1].detach()
+    tx, ty, gu, gv = _thread_coords(u, v, H, W)
+    assert _nan_equal(tx, ix.detach()) and _nan_equal(ty, iy.detach())
+    assert _nan_equal(ktex.grid_sample_plain(maps.detach(), tx, ty, mode),
+                 ref_out.detach())
+    _, dix, diy = ktex.grid_sample_backward_plain(maps.detach(), tx, ty,
+                                                  cot, mode)
+    du, dv = _thread_vjp(u, v, gu, gv, H, W, dix, diy)
+    want = ref_duv[..., :2].reshape(2, -1, 2)
+    assert _nan_equal(du, want[..., 0]) and _nan_equal(dv, want[..., 1])
+    if mode == 'nearest':
+        assert not du.any() and not dv.any()
+    else:
+        assert du.isnan().any() and (du == 0).any()
+        assert (du.isfinite() & (du != 0)).any()
+
+
+def test_grid_sample_uv_takes_cuda_float32_only():
+    """The UV route raises on CPU tensors (texture_mapping keeps the
+    composition there) and counts nothing."""
+    maps, uv = torch.zeros(1, 3, 4, 4), torch.zeros(1, 5, 2)
+    n = ktex.grid_sample_uv.launches, ktex.grid_sample_uv_backward.launches
+    with pytest.raises(TypeError, match='CUDA float32'):
+        ktex.grid_sample_uv(maps, uv)
+    with pytest.raises(TypeError, match='CUDA float32'):
+        ktex.grid_sample_uv_backward(maps.double(), uv.double(),
+                                     torch.zeros(1, 5, 3))
+    with pytest.raises(ValueError, match='mode'):
+        ktex.grid_sample_uv(maps, uv, mode='bicubic')
+    assert n == (ktex.grid_sample_uv.launches,
+                 ktex.grid_sample_uv_backward.launches)
 
 
 def test_gradcheck_grid_sample_2d():
